@@ -1,0 +1,49 @@
+"""mgpgcr_tpu_torch: the PyTorch + CUDA port of ``mgpgcr_tpu``.
+
+Fields are split re/im ``cplx.CF`` pairs in the slab layout
+``(4, 3, T, Z, Y*X)``; the Wilson--Dirac operator ``A = I - kD`` runs on
+hand-written CUDA kernels for Hopper (``csrc/``, built by one ``nvcc`` call
+at first use and bound with ``ctypes``), and flexible GCR runs either as
+the generic loop or as the restart-cycle form through the kernels. Entry
+points run on CUDA unless the caller passes ``device="cpu"``; CPU tensors
+take each kernel's plain PyTorch version. The JAX package ``mgpgcr_tpu``
+is the reference this package is held against.
+"""
+
+from mgpgcr_tpu_torch import cplx, fields
+from mgpgcr_tpu_torch.mesh import LatticeMesh
+from mgpgcr_tpu_torch.ops.dirac import DiracOperator
+from mgpgcr_tpu_torch.ops.dslash import (
+    CudaWilsonDirac,
+    field_from_numpy,
+    field_to_numpy,
+    links_from_numpy,
+)
+from mgpgcr_tpu_torch.ops.wilson_slab import (
+    SlabWilsonDirac,
+    field_from_slab,
+    field_to_slab,
+    links_to_slab,
+)
+from mgpgcr_tpu_torch.solvers.gcr import GCRSolver, gcr_solve
+from mgpgcr_tpu_torch.solvers.params import GCRParams
+from mgpgcr_tpu_torch.solvers.result import SolveResult
+
+__all__ = [
+    "cplx",
+    "fields",
+    "LatticeMesh",
+    "DiracOperator",
+    "CudaWilsonDirac",
+    "SlabWilsonDirac",
+    "links_from_numpy",
+    "field_from_numpy",
+    "field_to_numpy",
+    "field_to_slab",
+    "field_from_slab",
+    "links_to_slab",
+    "GCRParams",
+    "GCRSolver",
+    "SolveResult",
+    "gcr_solve",
+]

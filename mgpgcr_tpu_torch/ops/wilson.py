@@ -1,0 +1,106 @@
+"""Wilson--Dirac hopping operator: gamma matrices, gauge links, and the
+numpy oracle.
+
+Counterpart of ``mgpgcr_tpu/ops/wilson.py``. The hopping operator is
+
+    D psi(x) = sum_mu [ (1 - gamma_mu) U_mu(x) psi(x+mu)
+                      + (1 + gamma_mu) U_mu^dag(x-mu) psi(x-mu) ],
+
+in the Dirac basis (the one implied by the reference's gamma5 spinor swap
+0<->2, 1<->3, Fields.h:311-338):
+  gamma_t = diag(1, 1, -1, -1),  gamma_i = [[0, -i sigma_i], [i sigma_i, 0]],
+  gamma_5 = [[0, I], [I, 0]],
+with sigma3 -> z, sigma2 -> y, sigma1 -> x for the dim order (t, z, y, x).
+Links are canonical ``(4, T, Z, Y, X, 3, 3)`` complex arrays on the host;
+``dirac_apply_np`` is the port's own numpy oracle of A = I - kD.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from mgpgcr_tpu_torch import cplx
+from mgpgcr_tpu_torch.mesh import LatticeMesh
+
+_S1 = np.array([[0, 1], [1, 0]], dtype=np.complex128)
+_S2 = np.array([[0, -1j], [1j, 0]], dtype=np.complex128)
+_S3 = np.array([[1, 0], [0, -1]], dtype=np.complex128)
+_I2 = np.eye(2, dtype=np.complex128)
+_Z2 = np.zeros((2, 2), dtype=np.complex128)
+
+
+def _blk(a, b, c, d):
+    return np.block([[a, b], [c, d]])
+
+
+# Hermitian gamma matrices: they make D gamma5-hermitian and every hopping
+# projector (1 -+ gamma_mu) rank 2 (the half-spinor trick of the kernels).
+GAMMA = np.stack(
+    [
+        _blk(_I2, _Z2, _Z2, -_I2),  # gamma_t
+        _blk(_Z2, -1j * _S3, 1j * _S3, _Z2),  # gamma_z
+        _blk(_Z2, -1j * _S2, 1j * _S2, _Z2),  # gamma_y
+        _blk(_Z2, -1j * _S1, 1j * _S1, _Z2),  # gamma_x
+    ]
+)
+GAMMA5 = _blk(_Z2, _I2, _I2, _Z2)
+
+# hopping spin projectors: forward 1 - gamma_mu, backward 1 + gamma_mu
+P_MINUS = np.stack([np.eye(4) - GAMMA[mu] for mu in range(4)])
+P_PLUS = np.stack([np.eye(4) + GAMMA[mu] for mu in range(4)])
+
+
+def random_links_np(seed: int, mesh: LatticeMesh) -> np.ndarray:
+    """Haar-random SU(3) links (4, T, Z, Y, X, 3, 3), complex128: QR of a
+    Ginibre matrix, phase fix, projection U(3) -> SU(3). Same construction
+    and the same numbers as the JAX package's ``random_links_np``."""
+    rng = np.random.default_rng(seed)
+    shape = (4, *mesh.spacetime_dims, 3, 3)
+    z = rng.standard_normal(shape) + 1j * rng.standard_normal(shape)
+    q, r = np.linalg.qr(z)
+    d = np.einsum("...ii->...i", r)
+    q = q * (d / np.abs(d))[..., None, :]
+    det = np.linalg.det(q)
+    return q / det[..., None, None] ** (1.0 / 3.0)
+
+
+def unit_links(mesh: LatticeMesh) -> np.ndarray:
+    """Free-field (identity) links (4, T, Z, Y, X, 3, 3), complex128."""
+    eye = np.eye(3, dtype=np.complex128)
+    return np.broadcast_to(eye, (4, *mesh.spacetime_dims, 3, 3)).copy()
+
+
+def antiperiodic_t(links):
+    """Anti-periodic temporal boundary condition as a link map: negates
+    U_t on the t = T-1 slice of canonical links (a complex ndarray or a
+    ``cplx.CF`` of tensors). The flipped links have det = -1, so two-row
+    compression no longer reconstructs them: for a compressed operator use
+    ``build(..., antiperiodic_t=True)``, which applies the sign in-kernel."""
+    if cplx.is_cf(links):
+        return cplx.CF(antiperiodic_t(links.re), antiperiodic_t(links.im))
+    out = links.clone() if hasattr(links, "clone") else np.array(links, copy=True)
+    out[0, -1] = -out[0, -1]
+    return out
+
+
+def dirac_apply_np(
+    links: np.ndarray, mesh: LatticeMesh, x: np.ndarray, k: complex = 0.0
+) -> np.ndarray:
+    """A x = x - k D x in numpy complex128 on a canonical flat field
+    (index ((site*4 + spinor)*3 + colour), sites row-major t, z, y, x);
+    k = 0 gives the bare hopping D. Reference operator: Operator.h:570-574."""
+    links = np.asarray(links, np.complex128)
+    st = mesh.spacetime_dims
+    psi = np.asarray(x, np.complex128).reshape(*st, 4, 3)
+    out = np.zeros_like(psi)
+    for mu in range(4):
+        u = links[mu]
+        fwd = np.roll(psi, -1, axis=mu)
+        fwd = np.einsum("tzyxab,tzyxsb->tzyxsa", u, fwd)
+        out += np.einsum("ij,tzyxjc->tzyxic", P_MINUS[mu], fwd)
+        udag = np.roll(u.conj().swapaxes(-1, -2), 1, axis=mu)
+        bwd = np.roll(psi, 1, axis=mu)
+        bwd = np.einsum("tzyxab,tzyxsb->tzyxsa", udag, bwd)
+        out += np.einsum("ij,tzyxjc->tzyxic", P_PLUS[mu], bwd)
+    res = psi - k * out if k else out
+    return res.reshape(-1)

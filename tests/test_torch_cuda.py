@@ -1,0 +1,95 @@
+"""The hand-written CUDA kernels against their plain PyTorch versions on
+the card, at small and ragged lattices (site counts that are not a
+multiple of the 256-thread block). Skips without a CUDA device. On the
+card, without JAX installed:
+``python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py``."""
+
+import numpy as np
+import pytest
+import torch
+
+from mgpgcr_tpu_torch import LatticeMesh, cplx, links_from_numpy
+from mgpgcr_tpu_torch.kernels.dslash import dslash_apply, dslash_plain
+from mgpgcr_tpu_torch.kernels.gcr_dslash import gcr_stream_step, gcr_stream_step_plain
+from mgpgcr_tpu_torch.kernels.gcr_kernels import (
+    ap_update,
+    ap_update_plain,
+    basis_flush,
+    basis_flush_plain,
+)
+from mgpgcr_tpu_torch.ops import wilson
+
+pytestmark = pytest.mark.cuda
+
+LATTICES = [(4, 4, 4, 4), (2, 6, 3, 10), (6, 2, 5, 7)]
+TOL = 1e-5  # f32 fields and reductions, relative to the output's scale
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def _close(got, want):
+    g = cplx.to_numpy(got) if cplx.is_cf(got) else got.detach().cpu().numpy()
+    w = cplx.to_numpy(want) if cplx.is_cf(want) else want.detach().cpu().numpy()
+    np.testing.assert_allclose(g, w, rtol=0, atol=TOL * np.abs(w).max())
+
+
+def _setup(dims, dev, rows, ldt):
+    mesh = LatticeMesh((*dims, 4, 3))
+    links = links_from_numpy(
+        wilson.random_links_np(1, mesh), mesh, dev, compress=rows == 2, link_dtype=ldt
+    )
+    gen = torch.Generator(device=dev).manual_seed(2)
+    shape = (4, 3, dims[0], dims[1], dims[2] * dims[3])
+    return mesh, links, gen, shape
+
+
+@pytest.mark.parametrize("dims", LATTICES, ids=lambda d: "x".join(map(str, d)))
+@pytest.mark.parametrize("rows,ldt", [(3, torch.float32), (2, torch.bfloat16)])
+def test_dslash_kernel(dev, dims, rows, ldt):
+    mesh, links, gen, shape = _setup(dims, dev, rows, ldt)
+    psi = cplx.random(gen, shape, torch.float32, dev)
+    k = torch.tensor(0.13 - 0.02j, dtype=torch.complex64, device=dev)
+    for kk, anti in ((None, False), (k, True)):
+        before = dslash_apply.launches
+        _close(dslash_apply(links, psi, mesh, kk, anti), dslash_plain(links, psi, mesh, kk, anti))
+        assert dslash_apply.launches == before + 1
+
+
+@pytest.mark.parametrize("dims", LATTICES, ids=lambda d: "x".join(map(str, d)))
+def test_gcr_kernels(dev, dims):
+    S = 3
+    mesh, links, gen, shape = _setup(dims, dev, 2, torch.float32)
+    r = cplx.random(gen, shape, torch.float32, dev)
+    aps = cplx.random(gen, (S,) + shape, torch.float32, dev)
+    alpha = torch.tensor(0.4 + 0.1j, dtype=torch.complex64, device=dev)
+    k = torch.tensor(0.12, dtype=torch.complex64, device=dev)
+    betas = torch.tensor([0.3 - 0.1j, -0.2 + 0.5j, 0.1j], dtype=torch.complex64, device=dev)
+    for lim in range(1, S + 1):
+        got = gcr_stream_step(links, r, aps, alpha, k, lim, mesh, anti_t=True)
+        want = gcr_stream_step_plain(links, r, aps, alpha, k, lim, mesh, anti_t=True)
+        for g, w in zip(got, want):
+            _close(g, w)
+        slot = lim % S
+        got_aps, got_n = ap_update(r, aps.clone(), betas, slot, lim)
+        want_aps, want_n = ap_update_plain(r, aps.clone(), betas, slot, lim)
+        _close(got_aps, want_aps)
+        _close(got_n, want_n)
+        basis = [aps[m] for m in range(lim)] + [r]
+        w = betas[: lim + 1] if lim < S else torch.cat([betas, betas[:1]])
+        for g, ww in zip(basis_flush(r, basis, w, w.conj()),
+                         basis_flush_plain(r, basis, w, w.conj())):
+            _close(g, ww)
+
+
+def test_wrappers_refuse_what_the_kernels_cannot_take(dev):
+    mesh, links, gen, shape = _setup((4, 4, 4, 4), dev, 3, torch.float32)
+    psi64 = cplx.random(gen, shape, torch.float64, dev)
+    with pytest.raises(ValueError):
+        dslash_apply(links, psi64, mesh)
+    with pytest.raises(ValueError):
+        dslash_apply(links, cplx.random(gen, shape, torch.float32, dev).to("cpu"), mesh)
