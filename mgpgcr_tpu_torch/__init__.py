@@ -4,14 +4,16 @@ Fields are split re/im ``cplx.CF`` pairs in the slab layout
 ``(4, 3, T, Z, Y*X)``; the Wilson--Dirac operator ``A = I - kD`` runs on
 hand-written CUDA kernels for Hopper (``csrc/``, built by one ``nvcc`` call
 at first use and bound with ``ctypes``), and flexible GCR runs either as
-the generic loop or as the restart-cycle form through the kernels. Entry
+the generic loop or as the restart-cycle form through the kernels, plain
+or with the two-level multigrid preconditioner (``setup_mg``). Entry
 points run on CUDA unless the caller passes ``device="cpu"``; CPU tensors
 take each kernel's plain PyTorch version. The JAX package ``mgpgcr_tpu``
 is the reference this package is held against.
 """
 
 from mgpgcr_tpu_torch import cplx, fields
-from mgpgcr_tpu_torch.mesh import LatticeMesh
+from mgpgcr_tpu_torch.mesh import BlockMap, LatticeMesh
+from mgpgcr_tpu_torch.ops.dense import DenseOperator
 from mgpgcr_tpu_torch.ops.dirac import DiracOperator
 from mgpgcr_tpu_torch.ops.dslash import (
     CudaWilsonDirac,
@@ -24,15 +26,20 @@ from mgpgcr_tpu_torch.ops.wilson_slab import (
     field_from_slab,
     field_to_slab,
     links_to_slab,
+    with_link_dtype,
 )
 from mgpgcr_tpu_torch.solvers.gcr import GCRSolver, gcr_solve
-from mgpgcr_tpu_torch.solvers.params import GCRParams
+from mgpgcr_tpu_torch.solvers.mg import MGPreconditioner, mg_from_numpy, setup_mg
+from mgpgcr_tpu_torch.solvers.params import GCRParams, MGParams
+from mgpgcr_tpu_torch.solvers.power import inverse_power_vectors
 from mgpgcr_tpu_torch.solvers.result import SolveResult
 
 __all__ = [
     "cplx",
     "fields",
     "LatticeMesh",
+    "BlockMap",
+    "DenseOperator",
     "DiracOperator",
     "CudaWilsonDirac",
     "SlabWilsonDirac",
@@ -42,8 +49,14 @@ __all__ = [
     "field_to_slab",
     "field_from_slab",
     "links_to_slab",
+    "with_link_dtype",
     "GCRParams",
+    "MGParams",
     "GCRSolver",
     "SolveResult",
     "gcr_solve",
+    "MGPreconditioner",
+    "setup_mg",
+    "mg_from_numpy",
+    "inverse_power_vectors",
 ]

@@ -1,23 +1,35 @@
-// K2: the one-pass GCR step of the unpreconditioned restart solve.
+// K2: the one-pass GCR step of the unpreconditioned restart solve, and B9:
+// its preconditioned twin (the z-step).
 //
+// K2 (gcr_stream_step):
 //   r'  = r - alpha aps[lim-1]            (written out)
 //   az  = (I - k D) r'                    (written out)
 //   r2  = ||r'||^2
 //   raw_j = <aps_j, az>, apr_j = <aps_j, r'>   for j < lim (zeros above)
 //   apr_S = <az, r'>
+// B9 (gcr_z_step), with z = M(r) the preconditioner's output:
+//   az  = (I - k D) z                     (written out)
+//   raw_j = <aps_j, az>, apr_j = <aps_j, r>    for j < lim (zeros above)
+//   apr_S = <az, r>
 //
-// Replaces mgpgcr_tpu/ops/pallas/gcr_dslash.py::_gcr_step_kernel (via
-// gcr_stream_step). The TPU kernel carries the r' planes of t-1 and t in
-// VMEM while it streams t. Blocks on a GPU share nothing, and the stencil
-// needs r' at the 8 neighbours, so this kernel RECOMPUTES r' = r - alpha ap
-// at every neighbour from r and aps[lim-1] (RPrimeLoad) instead of running
-// a separate residual pass: one launch, no r' round trip through DRAM, at
-// the price of twice the neighbour gathers, which L2 serves.
+// K2 replaces mgpgcr_tpu/ops/pallas/gcr_dslash.py::_gcr_step_kernel (via
+// gcr_stream_step), B9 replaces ::_gcr_z_kernel (via gcr_z_step). The TPU
+// kernels carry the stencil input's planes of t-1 and t in VMEM while they
+// stream t. Blocks on a GPU share nothing, and the stencil needs its input
+// at the 8 neighbours. K2 therefore RECOMPUTES r' = r - alpha ap at every
+// neighbour from r and aps[lim-1] (RPrimeLoad) instead of running a
+// separate residual pass: one launch, no r' round trip through DRAM, at
+// the price of twice the neighbour gathers, which L2 serves. B9's stencil
+// input z depends on nothing else, so it gathers z plainly (FieldLoad) and
+// reads r only at the thread's own site, for the dots. Both are one
+// template: the ZSTEP flag picks the stencil input and drops r' and r2.
 //
-// Bound on an H100: bytes. DRAM must see the links, r and aps[0:lim] once
-// each and r', az written once: 288 + (1 + lim) * 96 + 2 * 96 B per site
-// for f32 3-row links. The dots are epilogue arithmetic on values already
-// in registers plus one read of each aps_j at the thread's own site.
+// Bound on an H100: bytes. DRAM must see the links, the stencil input's
+// sources and aps[0:lim] once each and the outputs written once: for K2
+// 192 + (1 + lim) * 96 + 2 * 96 B per site with two-row f32 links, for
+// B9 192 + (2 + lim) * 96 + 96. The dots are epilogue arithmetic on values
+// already in registers plus one read of each aps_j at the thread's own
+// site.
 //
 // Dot products: f32 within a thread, f64 from the warp shuffle on, one
 // partial per block; reduce_partials adds the partials in block order, so
@@ -30,10 +42,15 @@ namespace mg {
 // output layout of res (floats): raw (S complex), apr (S + 1 complex), r2
 __host__ __device__ __forceinline__ int n_values(int S) { return 2 * S + 2 * (S + 1) + 1; }
 
-template <int R, typename LT>
+// the stencil input: r' = r - alpha aps[lim-1] (K2) or z (B9)
+template <bool ZSTEP> struct StepLoad { using type = RPrimeLoad; };
+template <> struct StepLoad<true> { using type = FieldLoad; };
+
+template <int R, typename LT, bool ZSTEP>
 __global__ void __launch_bounds__(kThreads)
 gcr_step_kernel(const float* __restrict__ rre, const float* __restrict__ rim,
                 const float* __restrict__ aps_re, const float* __restrict__ aps_im,
+                const float* __restrict__ zre, const float* __restrict__ zim,
                 const LT* __restrict__ ure, const LT* __restrict__ uim,
                 const float* __restrict__ alpha, const float* __restrict__ k,
                 float* __restrict__ rp_re, float* __restrict__ rp_im, float* __restrict__ az_re,
@@ -48,10 +65,17 @@ gcr_step_kernel(const float* __restrict__ rre, const float* __restrict__ rim,
   const int n = blockIdx.x * blockDim.x + threadIdx.x;
   const bool live = n < g.N;
   const int M = 12 * g.N;  // one stack row
-  const float* slot_re = aps_re + static_cast<long long>(lim - 1) * M;
-  const float* slot_im = aps_im + static_cast<long long>(lim - 1) * M;
-  const RPrimeLoad L{rre, rim, slot_re, slot_im, {alpha[0], alpha[1]}, g.N};
+  typename StepLoad<ZSTEP>::type L;
+  if constexpr (ZSTEP) {
+    L = FieldLoad{zre, zim, g.N};
+  } else {
+    const float* slot_re = aps_re + static_cast<long long>(lim - 1) * M;
+    const float* slot_im = aps_im + static_cast<long long>(lim - 1) * M;
+    L = RPrimeLoad{rre, rim, slot_re, slot_im, {alpha[0], alpha[1]}, g.N};
+  }
+  const FieldLoad Rd{rre, rim, g.N};
 
+  // rp: the dots' second vector, r' (K2) or r (B9)
   cf rp[4][3], az[4][3];
   float r2 = 0.f;
   if (live) {
@@ -61,14 +85,19 @@ gcr_step_kernel(const float* __restrict__ rre, const float* __restrict__ rim,
     for (int s = 0; s < 4; ++s)
 #pragma unroll
       for (int c = 0; c < 3; ++c) {
-        rp[s][c] = L(s, c, n);
-        az[s][c] = csub(rp[s][c], cmul(kk, az[s][c]));
+        const cf psi = L(s, c, n);
+        az[s][c] = csub(psi, cmul(kk, az[s][c]));
         const int o = (s * 3 + c) * g.N + n;
-        rp_re[o] = rp[s][c].re;
-        rp_im[o] = rp[s][c].im;
         az_re[o] = az[s][c].re;
         az_im[o] = az[s][c].im;
-        r2 += rp[s][c].re * rp[s][c].re + rp[s][c].im * rp[s][c].im;
+        if constexpr (ZSTEP) {
+          rp[s][c] = Rd(s, c, n);
+        } else {
+          rp[s][c] = psi;
+          rp_re[o] = psi.re;
+          rp_im[o] = psi.im;
+          r2 += psi.re * psi.re + psi.im * psi.im;
+        }
       }
   } else {
 #pragma unroll
@@ -132,9 +161,10 @@ cudaError_t reduce_partials(const double* partials, int nblocks, int nv, float* 
   return cudaGetLastError();
 }
 
-template <int R, typename LT>
+template <int R, typename LT, bool ZSTEP>
 static cudaError_t launch_step(const float* rre, const float* rim, const float* aps_re,
-                               const float* aps_im, const void* ure, const void* uim,
+                               const float* aps_im, const float* zre, const float* zim,
+                               const void* ure, const void* uim,
                                const float* alpha, const float* k, float* rp_re, float* rp_im,
                                float* az_re, float* az_im, double* partials, float* res, int S,
                                int lim, int T, int Z, int Y, int X, int anti_t,
@@ -143,12 +173,34 @@ static cudaError_t launch_step(const float* rre, const float* rim, const float* 
   const int nblocks = (n + kThreads - 1) / kThreads;
   const int nv = n_values(S);
   const size_t smem = sizeof(double) * kWarps * nv;
-  gcr_step_kernel<R, LT><<<nblocks, kThreads, smem, stream>>>(
-      rre, rim, aps_re, aps_im, static_cast<const LT*>(ure), static_cast<const LT*>(uim), alpha,
-      k, rp_re, rp_im, az_re, az_im, partials, S, lim, T, Z, Y, X, anti_t);
+  gcr_step_kernel<R, LT, ZSTEP><<<nblocks, kThreads, smem, stream>>>(
+      rre, rim, aps_re, aps_im, zre, zim, static_cast<const LT*>(ure),
+      static_cast<const LT*>(uim), alpha, k, rp_re, rp_im, az_re, az_im, partials, S, lim, T, Z,
+      Y, X, anti_t);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   return reduce_partials(partials, nblocks, nv, res, stream);
+}
+
+// the four link variants of one step form: rows 3/2, f32/bf16 storage
+template <bool ZSTEP>
+static cudaError_t dispatch_step(const float* rre, const float* rim, const float* aps_re,
+                                 const float* aps_im, const float* zre, const float* zim,
+                                 const void* ure, const void* uim, const float* alpha,
+                                 const float* k, float* rp_re, float* rp_im, float* az_re,
+                                 float* az_im, double* partials, float* res, int S, int lim,
+                                 int T, int Zd, int Y, int X, int rows, int bf16, int anti_t,
+                                 cudaStream_t s) {
+  if (lim < 1 || lim > S) return cudaErrorInvalidValue;
+#define MG_STEP(RR, LT)                                                                    \
+  launch_step<RR, LT, ZSTEP>(rre, rim, aps_re, aps_im, zre, zim, ure, uim, alpha, k, rp_re, \
+                             rp_im, az_re, az_im, partials, res, S, lim, T, Zd, Y, X, anti_t, s)
+  if (rows == 3 && !bf16) return MG_STEP(3, float);
+  if (rows == 2 && !bf16) return MG_STEP(2, float);
+  if (rows == 3 && bf16) return MG_STEP(3, __nv_bfloat16);
+  if (rows == 2 && bf16) return MG_STEP(2, __nv_bfloat16);
+#undef MG_STEP
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace mg
@@ -160,23 +212,19 @@ extern "C" int mg_gcr_stream_step(const float* rre, const float* rim, const floa
                                   float* rp_im, float* az_re, float* az_im, double* partials,
                                   float* res, int S, int lim, int T, int Z, int Y, int X,
                                   int rows, int bf16, int anti_t, void* stream) {
-  using namespace mg;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (lim < 1 || lim > S) return static_cast<int>(cudaErrorInvalidValue);
-#define MG_STEP(RR, LT)                                                                      \
-  launch_step<RR, LT>(rre, rim, aps_re, aps_im, ure, uim, alpha, k, rp_re, rp_im, az_re, az_im, \
-                      partials, res, S, lim, T, Z, Y, X, anti_t, s)
-  cudaError_t err;
-  if (rows == 3 && !bf16)
-    err = MG_STEP(3, float);
-  else if (rows == 2 && !bf16)
-    err = MG_STEP(2, float);
-  else if (rows == 3 && bf16)
-    err = MG_STEP(3, __nv_bfloat16);
-  else if (rows == 2 && bf16)
-    err = MG_STEP(2, __nv_bfloat16);
-  else
-    return static_cast<int>(cudaErrorInvalidValue);
-#undef MG_STEP
-  return static_cast<int>(err);
+  return static_cast<int>(mg::dispatch_step<false>(
+      rre, rim, aps_re, aps_im, nullptr, nullptr, ure, uim, alpha, k, rp_re, rp_im, az_re, az_im,
+      partials, res, S, lim, T, Z, Y, X, rows, bf16, anti_t, static_cast<cudaStream_t>(stream)));
+}
+
+// as mg_gcr_stream_step, with z the stencil input and r read for the dots
+// only; res keeps K2's layout, its r2 entry is 0
+extern "C" int mg_gcr_z_step(const float* rre, const float* rim, const float* aps_re,
+                             const float* aps_im, const float* zre, const float* zim,
+                             const void* ure, const void* uim, const float* k, float* az_re,
+                             float* az_im, double* partials, float* res, int S, int lim, int T,
+                             int Z, int Y, int X, int rows, int bf16, int anti_t, void* stream) {
+  return static_cast<int>(mg::dispatch_step<true>(
+      rre, rim, aps_re, aps_im, zre, zim, ure, uim, nullptr, k, nullptr, nullptr, az_re, az_im,
+      partials, res, S, lim, T, Z, Y, X, rows, bf16, anti_t, static_cast<cudaStream_t>(stream)));
 }

@@ -1,12 +1,15 @@
-// K3 and K4: the streaming GCR algebra of the restart-cycle solve.
+// K3, K4 and B2: the streaming GCR algebra of the restart-cycle solve.
 //
 // K3 ap_update replaces mgpgcr_tpu/ops/pallas/gcr_kernels.py::_k3z_kernel
 // (via ap_update, called with r=None):
 //   aps[slot] = az - sum_{j<lim} beta_j aps_j   (in place), ||aps[slot]||^2.
 // K4 basis_flush replaces ::_k4z_kernel (via basis_flush):
 //   x' = x + sum_m wx_m b_m,   p0' = sum_m wp_m b_m   over nb basis fields.
+// B2 update_r replaces ::_k1r_kernel (via update_r), the residual update
+// of the preconditioned restart cycle:
+//   r' = r - alpha aps[slot],   ||r'||^2.
 //
-// Bound on an H100: bytes; both are a few flops per element. The TPU
+// Bound on an H100: bytes; all three are a few flops per element. The TPU
 // kernels cut the fields into VMEM row windows on a sequential grid and
 // carry the norm in SMEM; here a grid-stride loop walks the flat fields,
 // neighbouring threads on neighbouring floats, so every field streams
@@ -14,8 +17,9 @@
 // 1 + nb and writes two. K3 reads only the live prefix j < lim, and may
 // write a slot inside it: each thread reads all of its element's inputs
 // before it writes. The coefficients beta, wx and wp and the basis
-// pointers are read from device memory. The norm is reduced as in K2:
+// pointers are read from device memory. The norms are reduced as in K2:
 // f32 per thread, f64 from the warp on, block partials added in order.
+// B2 reads r and one stack row and writes r': three field passes.
 #include "common.cuh"
 
 namespace mg {
@@ -77,6 +81,28 @@ basis_flush_kernel(const float* __restrict__ x_re, const float* __restrict__ x_i
   }
 }
 
+__global__ void __launch_bounds__(kThreads)
+update_r_kernel(const float* __restrict__ r_re, const float* __restrict__ r_im,
+                const float* __restrict__ ap_re, const float* __restrict__ ap_im,
+                const float* __restrict__ alpha, float* __restrict__ o_re,
+                float* __restrict__ o_im, double* __restrict__ partials, long long M) {
+  __shared__ double sm[kWarps];
+  const float ar = alpha[0], ai = alpha[1];
+  float nrm = 0.f;
+  const long long step = static_cast<long long>(gridDim.x) * blockDim.x;
+  for (long long e = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x; e < M;
+       e += step) {
+    const float pr = ap_re[e], pi = ap_im[e];
+    const float nr = r_re[e] - (ar * pr - ai * pi);
+    const float ni = r_im[e] - (ar * pi + ai * pr);
+    o_re[e] = nr;
+    o_im[e] = ni;
+    nrm += nr * nr + ni * ni;
+  }
+  block_put(sm, 1, 0, nrm);
+  block_flush(sm, 1, partials);
+}
+
 }  // namespace mg
 
 // partials: kMaxBlocks doubles; apn: one float
@@ -103,4 +129,20 @@ extern "C" int mg_basis_flush(const float* x_re, const float* x_im, const float*
   basis_flush_kernel<<<stride_blocks(M), kThreads, 0, s>>>(x_re, x_im, basis, wx, wp, ox_re,
                                                            ox_im, op_re, op_im, M, nb);
   return static_cast<int>(cudaGetLastError());
+}
+
+// r' = r - alpha aps[slot] out of place; alpha: one (re, im) pair;
+// partials: kMaxBlocks doubles; r2: one float
+extern "C" int mg_update_r(const float* r_re, const float* r_im, const float* aps_re,
+                           const float* aps_im, const float* alpha, double* partials,
+                           float* o_re, float* o_im, float* r2, long long M, int slot,
+                           void* stream) {
+  using namespace mg;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int nblocks = stride_blocks(M);
+  update_r_kernel<<<nblocks, kThreads, 0, s>>>(r_re, r_im, aps_re + slot * M, aps_im + slot * M,
+                                               alpha, o_re, o_im, partials, M);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(reduce_partials(partials, nblocks, 1, r2, s));
 }

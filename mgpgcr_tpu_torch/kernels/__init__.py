@@ -4,10 +4,14 @@ the plain version for CPU tensors; ``<wrapper>.launches`` counts kernel
 launches only."""
 
 from mgpgcr_tpu_torch.kernels.dslash import dslash_apply
-from mgpgcr_tpu_torch.kernels.gcr_dslash import gcr_stream_step
-from mgpgcr_tpu_torch.kernels.gcr_kernels import ap_update, basis_flush
+from mgpgcr_tpu_torch.kernels.gcr_dslash import gcr_stream_step, gcr_z_step
+from mgpgcr_tpu_torch.kernels.gcr_kernels import ap_update, basis_flush, update_r
+from mgpgcr_tpu_torch.kernels.transfer import prolong, restrict
 
-WRAPPERS = (dslash_apply, gcr_stream_step, ap_update, basis_flush)
+WRAPPERS = (
+    dslash_apply, gcr_stream_step, ap_update, basis_flush, update_r, gcr_z_step, restrict,
+    prolong,
+)
 
 
 def reset_launches() -> None:

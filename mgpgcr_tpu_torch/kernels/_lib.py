@@ -31,6 +31,7 @@ NVCC_FLAGS = [
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
+_F = ctypes.c_float
 # extern "C" signatures of csrc/*.cu; every function returns a cudaError_t
 _SIGNATURES = {
     # psi re/im, links re/im, out re/im, k (nullable), T, Z, Y, X,
@@ -43,6 +44,17 @@ _SIGNATURES = {
     "mg_ap_update": [_P] * 7 + [_L, _I, _I, _P],
     # x re/im, basis pointer table, wx, wp, x' re/im, p0' re/im, M, nb, stream
     "mg_basis_flush": [_P] * 9 + [_L, _I, _P],
+    # r re/im, aps re/im, alpha, partials, r' re/im, r2, M, slot, stream
+    "mg_update_r": [_P] * 9 + [_L, _I, _P],
+    # r re/im, aps re/im, z re/im, links re/im, k, az re/im, partials, res,
+    # S, lim, T, Z, Y, X, rows, bf16, anti_t, stream
+    "mg_gcr_z_step": [_P] * 13 + [_I] * 9 + [_P],
+    # q re/im, x re/im, partials, out re/im, ne, T, Z, Y, X, bt, bz, by, bx,
+    # bf16 basis, stream
+    "mg_restrict": [_P] * 7 + [_I] * 10 + [_P],
+    # q re/im, c re/im, base re/im (nullable), out re/im, damping, ne, T, Z,
+    # Y, X, bt, bz, by, bx, bf16 basis, stream
+    "mg_prolong": [_P] * 8 + [_F] + [_I] * 10 + [_P],
 }
 
 _lock = threading.Lock()

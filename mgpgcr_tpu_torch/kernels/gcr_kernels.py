@@ -1,9 +1,11 @@
-"""K3 and K4: the restart-cycle GCR algebra's wrappers and plain versions.
+"""K3, K4 and B2: the restart-cycle GCR algebra's wrappers and plain
+versions.
 
 ``ap_update`` replaces ``mgpgcr_tpu/ops/pallas/gcr_kernels.py::ap_update``
-(``_k3z_kernel``, as the one-pass solve calls it, with ``r=None``) and
-``basis_flush`` replaces ``::basis_flush`` (``_k4z_kernel``); the kernels
-are ``csrc/gcr_kernels.cu``.
+(``_k3z_kernel``, as the one-pass solve calls it, with ``r=None``),
+``basis_flush`` replaces ``::basis_flush`` (``_k4z_kernel``) and
+``update_r`` replaces ``::update_r`` (``_k1r_kernel``); the kernels are
+``csrc/gcr_kernels.cu``.
 """
 
 from __future__ import annotations
@@ -88,3 +90,38 @@ def basis_flush(x, basis, wx, wp):
 
 
 basis_flush.launches = 0
+
+
+def update_r_plain(r, aps, slot: int, alpha):
+    """Plain PyTorch version of B2; see :func:`update_r`."""
+    rp = r - aps[slot] * alpha
+    return rp, cplx.abs2_sum(rp)
+
+
+def update_r(r, aps, slot: int, alpha):
+    """(r', ||r'||^2) with r' = r - alpha aps[slot], a new field (the x
+    half of the update is deferred to the cycle-end basis_flush). alpha:
+    complex 0-d tensor on the device. The kernel's norm is f32 per thread
+    and f64 from the warp on."""
+    if not _lib.on_cuda(r.re, r.im, aps.re, aps.im, alpha):
+        return update_r_plain(r, aps, slot, alpha)
+    if aps.shape[1:] != r.shape or not 0 <= slot < aps.shape[0]:
+        raise ValueError(f"shapes r {r.shape}, aps {aps.shape}, slot {slot}")
+    _lib.check_cuda(r.re, r.im, aps.re, aps.im)
+    _lib.check_cuda(alpha, dtypes=(torch.complex64,))
+    dev = r.device
+    partials = torch.empty(_MAX_BLOCKS, dtype=torch.float64, device=dev)
+    r2 = torch.empty((), dtype=torch.float32, device=dev)
+    rp = cplx.CF(torch.empty_like(r.re), torch.empty_like(r.im))
+    ab = _lib.pairs(alpha)
+    with torch.cuda.device(dev):
+        _lib.launch(
+            "mg_update_r", r.re.data_ptr(), r.im.data_ptr(), aps.re.data_ptr(),
+            aps.im.data_ptr(), ab.data_ptr(), partials.data_ptr(), rp.re.data_ptr(),
+            rp.im.data_ptr(), r2.data_ptr(), r.re.numel(), slot, _lib.stream(r.re),
+        )
+    update_r.launches += 1
+    return rp, r2
+
+
+update_r.launches = 0

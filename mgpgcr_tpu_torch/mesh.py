@@ -1,14 +1,19 @@
-"""Lattice geometry: the static description of a lattice index space.
+"""Lattice geometry: the static description of a lattice index space and
+its 4-D blocking.
 
-Counterpart of ``LatticeMesh`` in ``mgpgcr_tpu/mesh.py``. Conventions are
-the reference's: a field index is ``(t, z, y, x, spinor, colour)`` with a
-row-major linear offset, colour fastest (Mesh.h:369-398).
+Counterpart of ``LatticeMesh`` and ``BlockMap`` in ``mgpgcr_tpu/mesh.py``.
+Conventions are the reference's: a field index is ``(t, z, y, x, spinor,
+colour)`` with a row-major linear offset, colour fastest
+(Mesh.h:369-398); blocks are numbered row-major over the 4 block
+coordinates (Mesh.h:168-233).
 """
 
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
+
+import numpy as np
 
 
 @dataclass(frozen=True)
@@ -34,8 +39,17 @@ class LatticeMesh:
         return self.dims[: self.n_spacetime]
 
     @property
+    def internal_dims(self) -> tuple[int, ...]:
+        return self.dims[self.n_spacetime :]
+
+    @property
     def n_sites(self) -> int:
         return math.prod(self.spacetime_dims)
+
+    @property
+    def site_dof(self) -> int:
+        """Degrees of freedom per site (4 spinor x 3 colour = 12)."""
+        return math.prod(self.internal_dims)
 
     def to_lattice(self, x):
         """Reshape (..., size) -> (..., *dims)."""
@@ -45,3 +59,91 @@ class LatticeMesh:
         """Reshape (..., *dims) -> (..., size)."""
         lead = tuple(x.shape[: x.ndim - len(self.dims)])
         return x.reshape(lead + (self.size,))
+
+    def blocking(self, block) -> "BlockMap":
+        """4-D spacetime blocking (Mesh::blocking, Mesh.h:237-298); ``block``
+        is one extent for every spacetime dim or a per-dim tuple."""
+        if isinstance(block, int):
+            block = (block,) * self.n_spacetime
+        block = tuple(int(b) for b in block)
+        if len(block) != self.n_spacetime:
+            raise ValueError("block extent must have one entry per spacetime dim")
+        for d, b in zip(self.spacetime_dims, block):
+            if d % b != 0:
+                raise ValueError(f"block extent {b} does not divide lattice dim {d}")
+        return BlockMap(mesh=self, block_dims=block)
+
+
+@dataclass(frozen=True)
+class BlockMap:
+    """A 4-D domain decomposition as layout transforms: a slab field
+    ``(..., 4, 3, T, Z, Y*X)`` becomes a blocked field ``(..., n_blocks,
+    block_len)``, block_len = block volume x 12, with the within-block dof
+    order (t, z, y, x, spinor, colour) row-major."""
+
+    mesh: LatticeMesh
+    block_dims: tuple[int, ...]
+
+    @property
+    def blocks_per_dim(self) -> tuple[int, ...]:
+        return tuple(d // b for d, b in zip(self.mesh.spacetime_dims, self.block_dims))
+
+    @property
+    def n_blocks(self) -> int:
+        return math.prod(self.blocks_per_dim)
+
+    @property
+    def block_sites(self) -> int:
+        return math.prod(self.block_dims)
+
+    @property
+    def block_len(self) -> int:
+        """Complex dof per block = block volume x (spinor x colour)."""
+        return self.block_sites * self.mesh.site_dof
+
+    def to_blocked_tpu(self, x):
+        """(..., 4, 3, T, Z, Y*X) -> (..., n_blocks, block_len); a tensor or
+        a ``cplx.CF``."""
+        t, z, y, xx = self.mesh.spacetime_dims
+        bt, bz, by, bx = self.block_dims
+        lead = tuple(x.shape[: x.ndim - 5])
+        nl = len(lead)
+        split = x.reshape(lead + (4, 3, t // bt, bt, z // bz, bz, y // by, by, xx // bx, bx))
+        perm = tuple(range(nl)) + tuple(nl + a for a in (2, 4, 6, 8, 3, 5, 7, 9, 0, 1))
+        return split.permute(perm).reshape(lead + (self.n_blocks, self.block_len))
+
+    def from_blocked_tpu(self, xb):
+        """(..., n_blocks, block_len) -> (..., 4, 3, T, Z, Y*X)."""
+        t, z, y, xx = self.mesh.spacetime_dims
+        bt, bz, by, bx = self.block_dims
+        lead = tuple(xb.shape[:-2])
+        nl = len(lead)
+        mid = xb.reshape(lead + (t // bt, z // bz, y // by, xx // bx, bt, bz, by, bx, 4, 3))
+        inv = (8, 9, 0, 4, 1, 5, 2, 6, 3, 7)  # inverse of to_blocked_tpu's permutation
+        moved = mid.permute(tuple(range(nl)) + tuple(nl + a for a in inv))
+        return moved.reshape(lead + (4, 3, t, z, y * xx))
+
+    def site_blocks(self) -> np.ndarray:
+        """(T, Z, Y*X) int64: the block index of every site."""
+        t, z, y, xx = self.mesh.spacetime_dims
+        nbt, nbz, nby, nbx = self.blocks_per_dim
+        bt, bz, by, bx = self.block_dims
+        ct, cz, cy, cx = np.meshgrid(
+            np.arange(t) // bt, np.arange(z) // bz, np.arange(y) // by, np.arange(xx) // bx,
+            indexing="ij",
+        )
+        return (((ct * nbz + cz) * nby + cy) * nbx + cx).reshape(t, z, y * xx)
+
+    def neighbor_table(self) -> np.ndarray:
+        """(n_blocks, 9) int32: [self, +d0, -d0, +d1, -d1, ...] with periodic
+        wrap, the coarse 9-point stencil of the Galerkin assembly
+        (MG.h:229-276)."""
+        bpd = self.blocks_per_dim
+        coords = np.stack(np.unravel_index(np.arange(self.n_blocks), bpd), axis=1)
+        cols = [np.arange(self.n_blocks)]
+        for d in range(len(bpd)):
+            for sgn in (1, -1):
+                nbc = coords.copy()
+                nbc[:, d] = (nbc[:, d] + sgn) % bpd[d]
+                cols.append(np.ravel_multi_index(tuple(nbc.T), bpd))
+        return np.stack(cols, axis=1).astype(np.int32)

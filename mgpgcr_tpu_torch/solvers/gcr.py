@@ -20,7 +20,8 @@ Semantics kept from the reference (and from the JAX package):
 
 Two forms: the generic loop (``gcr_solve`` with ``fused=False``) on any
 operator, and the restart-cycle z-basis form through the hand-written
-kernels (``_gcr_solve_fused_cycles``).
+kernels (``_gcr_solve_fused_cycles``), unpreconditioned or with a right
+preconditioner.
 """
 
 from __future__ import annotations
@@ -31,8 +32,8 @@ from typing import Callable, Optional
 import torch
 
 from mgpgcr_tpu_torch import cplx
-from mgpgcr_tpu_torch.kernels.gcr_dslash import gcr_stream_step
-from mgpgcr_tpu_torch.kernels.gcr_kernels import ap_update, basis_flush
+from mgpgcr_tpu_torch.kernels.gcr_dslash import gcr_stream_step, gcr_z_step
+from mgpgcr_tpu_torch.kernels.gcr_kernels import ap_update, basis_flush, update_r
 from mgpgcr_tpu_torch.ops.base import LinearOperator
 from mgpgcr_tpu_torch.ops.dirac import DiracOperator
 from mgpgcr_tpu_torch.ops.dslash import CudaWilsonDirac
@@ -184,31 +185,54 @@ def _mega_step_config(a, precond):
     return step
 
 
+def _z_step_config(a):
+    """Step function ``(z, r, aps, lim) -> (az, raw, apr)`` when the
+    preconditioned one-pass step applies: A = I - kD with
+    ``CudaWilsonDirac`` as D and an even t extent of at least 2, the
+    conditions of the JAX package's ``_z_step_config``. None otherwise."""
+    if not isinstance(a, DiracOperator):
+        return None
+    d = a.d
+    t = d.mesh.spacetime_dims[0] if isinstance(d, CudaWilsonDirac) else 0
+    if t < 2 or t % 2:
+        return None
+
+    def zstep(z, r, aps, lim):
+        return gcr_z_step(d.links, z, r, aps, a.k, lim, d.mesh, anti_t=d.anti_t)
+
+    return zstep
+
+
 def _gcr_solve_fused_cycles(a, rhs, params: GCRParams, precond, x0) -> SolveResult:
     """Restart-cycle fused GCR in the z-basis representation.
 
     The search directions p_j are never materialised: only A p_j lives in
     the stack (for the beta dots and the residual update), and each p_j's
     expansion over the cycle's basis [p0, z_1 .. z_R] is a triangular table
-    of complex coefficients on the device. Per iteration: one one-pass step
-    (K2: r' = r - alpha Ap, az = A r', ||r'||^2 and the dots) and one
-    ap_update (K3); per cycle one basis_flush (K4) that gives x += sum
-    alpha_j p_j and the next seed direction. <ap_new, r'> follows by
-    recursion from K2's dots, so K3 never reads r. Reference loop:
-    GCR.h:222-288; JAX counterpart: ``_gcr_solve_fused_cycles``."""
+    of complex coefficients on the device. Per iteration without a
+    preconditioner: one one-pass step (K2: r' = r - alpha Ap, az = A r',
+    ||r'||^2 and the dots) and one ap_update (K3). With a right
+    preconditioner M: update_r (B2: r' = r - alpha Ap, ||r'||^2), z = M(r'),
+    the z-step (B9: az = A z and the dots) and ap_update. Per cycle one
+    basis_flush (K4) gives x += sum alpha_j p_j and the next seed
+    direction. <ap_new, r'> follows by recursion from the step's dots, so
+    K3 never reads r. Reference loop: GCR.h:222-288; JAX counterpart:
+    ``_gcr_solve_fused_cycles``."""
     unroll_ok = params.unroll == "cycles" or (params.unroll == "auto" and precond is None)
     if not (params.restart and params.restart <= 16 and not params.residual_refresh and unroll_ok):
         raise NotImplementedError(
             "the fused solve is the restart-cycle form: restart <= 16, no "
-            "residual_refresh, unroll 'auto' or 'cycles' (the direction-stack "
-            "kernels of the other forms are still to port)"
+            "residual_refresh, unroll 'cycles' ('auto' only without a "
+            "preconditioner); the loop form's update_xr and dir_update "
+            "kernels and truncation are still to port"
         )
     mega = _mega_step_config(a, precond)
-    if mega is None:
+    zstep = _z_step_config(a) if precond is not None else None
+    if mega is None and zstep is None:
         raise NotImplementedError(
-            "the fused solve needs A = DiracOperator(CudaWilsonDirac, k) and no "
-            "preconditioner (the z-step, update_r and beta_dots kernels are "
-            "still to port)"
+            "the fused solve needs A = DiracOperator(CudaWilsonDirac, k) with an "
+            "even t extent (the beta_dots kernel for other operators is still "
+            "to port)"
         )
     apply_a = a.apply
     rdtype, dev = rhs.dtype, rhs.device
@@ -221,7 +245,7 @@ def _gcr_solve_fused_cycles(a, rhs, params: GCRParams, precond, x0) -> SolveResu
     r = rhs - apply_a(x) if x0 is not None else rhs
     rhs_norm2 = cplx.abs2_sum(rhs)
 
-    p0 = r
+    p0 = precond(r) if precond is not None else r
     ap = apply_a(p0)
     aps = cplx.stack_zeros(S, ap)
     aps[0] = ap
@@ -237,7 +261,7 @@ def _gcr_solve_fused_cycles(a, rhs, params: GCRParams, precond, x0) -> SolveResu
     tol2 = params.tol**2
 
     while bool(_running(r2, rhs_norm2, tol2, it, max_iter)):  # one sync per cycle
-        basis = [p0]  # b_0 = seed direction, then b_j = z_j = r_j
+        basis = [p0]  # b_0 = seed direction, then b_j = z_j (= r_j unpreconditioned)
         coef = torch.zeros((R + 1, R + 1), dtype=cdt, device=dev)  # coef[j, m]
         coef[0, 0] = 1
         alphas = torch.zeros(R, dtype=cdt, device=dev)
@@ -248,14 +272,21 @@ def _gcr_solve_fused_cycles(a, rhs, params: GCRParams, precond, x0) -> SolveResu
             it = it + active
             alphas[j] = alpha
 
-            r, az, r2, raw, aprd = mega(r, aps, alpha, j + 1)
+            if mega is not None:
+                r, az, r2, raw, aprd = mega(r, aps, alpha, j + 1)
+                z = r
+            else:
+                r, r2 = update_r(r, aps, j, alpha)
             _record(hist, it, active, r2, rhs_norm2, rdtype)
+            if mega is None:
+                z = precond(r)
+                az, raw, aprd = zstep(z, r, aps, j + 1)
             betas = torch.where(
                 ap_norms > 0, _div_real(raw, ap_norms, rdtype), torch.zeros_like(raw)
             )
 
             # p_new = z - sum_i beta_i p_i, as coefficients over the basis
-            basis.append(r)
+            basis.append(z)
             b = betas[: j + 1]
             coef[j + 1, : j + 1] = -(b @ coef[: j + 1, : j + 1])
             coef[j + 1, j + 1] = 1

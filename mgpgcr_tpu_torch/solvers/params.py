@@ -1,12 +1,13 @@
 """Solver configuration.
 
-Counterpart of ``GCRParams`` in ``mgpgcr_tpu/solvers/params.py`` (the
-reference's ``GCR_Param``, SolverParam.h:22-35).
+Counterpart of ``GCRParams`` and ``MGParams`` in
+``mgpgcr_tpu/solvers/params.py`` (the reference's ``GCR_Param`` and
+``MG_Param``, SolverParam.h:22-59), with the same fields and defaults.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 
 @dataclass(frozen=True)
@@ -19,13 +20,13 @@ class GCRParams:
     Stopping: relative residual ||r||/||rhs|| <= tol, or max_iter.
     residual_refresh: every N iterations replace the recursive residual by
       rhs - A x (0 = off).
-    fused: run the restart-cycle solve through the hand-written kernels
-      (the one-pass step, ap_update, basis_flush); needs ``restart`` <= 16,
-      no residual_refresh, no preconditioner, and A = I - kD over
+    fused: run the restart-cycle solve through the hand-written kernels;
+      needs ``restart`` <= 16, no residual_refresh, and A = I - kD over
       ``CudaWilsonDirac``.
     unroll: the JAX package's choice of fused body form ("auto", "cycles",
-      "loop"). The port has the cycles form only; "loop" is refused by the
-      fused solve.
+      "loop"); "auto" is "cycles" without a preconditioner and "loop" with
+      one. The port has the cycles form only; the fused solve refuses
+      "loop" (and so "auto" with a preconditioner).
     """
 
     tol: float = 1e-13
@@ -49,3 +50,46 @@ class GCRParams:
         if self.truncation:
             return self.truncation
         return self.max_iter
+
+
+@dataclass(frozen=True)
+class MGParams:
+    """Two-level adaptive MG controls (MG_Param, SolverParam.h:38-59); the
+    meaning of every field is that of the JAX package's ``MGParams``.
+
+    The port runs ``n_level=2``, ``coarse_format="dense"`` and
+    ``assembly="phased"``. ``transfer_backend`` "auto" runs the transfer
+    kernels on CUDA tensors and their plain versions on CPU tensors; the
+    port has no other route, and other values raise for CUDA tensors.
+    ``transfer_dtype`` is the storage dtype of the field-shaped basis
+    (None, "bfloat16", "float32").
+    """
+
+    block: int = 4
+    n_nullvecs: int = 10
+    setup_gcr: GCRParams = field(
+        default_factory=lambda: GCRParams(tol=1e-8, max_iter=10, restart=10)
+    )
+    setup_power_iters: int = 10
+    coarse_gcr: GCRParams = field(
+        default_factory=lambda: GCRParams(tol=1e-2, max_iter=50, restart=10)
+    )
+    smoother_gcr: GCRParams | None = field(
+        default_factory=lambda: GCRParams(tol=0.0, max_iter=4, restart=4, fused=True)
+    )
+    n_pre_smooth: int = 1
+    n_post_smooth: int = 1
+    smoother: str = "gcr"  # "gcr" or "neumann"
+    smoother_terms: int = 4
+    coarse_format: str = "dense"
+    assembly: str = "phased"
+    correction_damping: float = 1.0
+    n_level: int = 2
+    coarse_block: int = 2
+    transfer_backend: str = "auto"
+    transfer_dtype: str | None = None
+
+    @property
+    def n_coarse_per_block(self) -> int:
+        """ne = 2 * n_nullvecs after chiral doubling (MG.h:146-149)."""
+        return 2 * self.n_nullvecs

@@ -8,15 +8,34 @@ import numpy as np
 import pytest
 import torch
 
-from mgpgcr_tpu_torch import LatticeMesh, cplx, links_from_numpy
+from mgpgcr_tpu_torch import (
+    CudaWilsonDirac,
+    DiracOperator,
+    GCRParams,
+    LatticeMesh,
+    MGParams,
+    cplx,
+    gcr_solve,
+    links_from_numpy,
+    setup_mg,
+    with_link_dtype,
+)
 from mgpgcr_tpu_torch.kernels.dslash import dslash_apply, dslash_plain
-from mgpgcr_tpu_torch.kernels.gcr_dslash import gcr_stream_step, gcr_stream_step_plain
+from mgpgcr_tpu_torch.kernels.gcr_dslash import (
+    gcr_stream_step,
+    gcr_stream_step_plain,
+    gcr_z_step,
+    gcr_z_step_plain,
+)
 from mgpgcr_tpu_torch.kernels.gcr_kernels import (
     ap_update,
     ap_update_plain,
     basis_flush,
     basis_flush_plain,
+    update_r,
+    update_r_plain,
 )
+from mgpgcr_tpu_torch.kernels.transfer import prolong, prolong_plain, restrict, restrict_plain
 from mgpgcr_tpu_torch.ops import wilson
 
 pytestmark = pytest.mark.cuda
@@ -93,3 +112,61 @@ def test_wrappers_refuse_what_the_kernels_cannot_take(dev):
         dslash_apply(links, psi64, mesh)
     with pytest.raises(ValueError):
         dslash_apply(links, cplx.random(gen, shape, torch.float32, dev).to("cpu"), mesh)
+
+
+# (lattice, block) of the MG kernels: the 8^4 size and a ragged one
+MG_LATTICES = [((8, 8, 8, 8), 4), ((2, 6, 3, 10), (1, 3, 3, 5))]
+
+
+@pytest.mark.parametrize("dims,block", MG_LATTICES, ids=lambda v: str(v))
+def test_mg_kernels(dev, dims, block):
+    S = 3
+    mesh, links2, gen, shape = _setup(dims, dev, 2, torch.float32)
+    links3 = links_from_numpy(wilson.random_links_np(1, mesh), mesh, dev,
+                              link_dtype=torch.bfloat16)
+    r = cplx.random(gen, shape, torch.float32, dev)
+    z = cplx.random(gen, shape, torch.float32, dev)
+    aps = cplx.random(gen, (S,) + shape, torch.float32, dev)
+    alpha = torch.tensor(0.4 + 0.1j, dtype=torch.complex64, device=dev)
+    k = torch.tensor(0.12, dtype=torch.complex64, device=dev)
+    for slot in range(S):
+        for g, w in zip(update_r(r, aps, slot, alpha), update_r_plain(r, aps, slot, alpha)):
+            _close(g, w)
+    for links in (links2, links3):
+        for lim in range(1, S + 1):
+            got = gcr_z_step(links, z, r, aps, k, lim, mesh, anti_t=True)
+            want = gcr_z_step_plain(links, z, r, aps, k, lim, mesh, anti_t=True)
+            for g, w in zip(got, want):
+                _close(g, w)
+    bm = mesh.blocking(block)
+    ne = 4
+    q = cplx.random(gen, (ne,) + shape, torch.float32, dev)
+    xc = cplx.random(gen, (bm.n_blocks * ne,), torch.float32, dev)
+    for qf in (q, q.astype(torch.bfloat16)):
+        before = (restrict.launches, prolong.launches)
+        _close(restrict(qf, bm, r), restrict_plain(qf, bm, r))
+        _close(prolong(qf, bm, xc), prolong_plain(qf, bm, xc))
+        _close(prolong(qf, bm, xc, r, 0.7), prolong_plain(qf, bm, xc, r, 0.7))
+        assert (restrict.launches, prolong.launches) == (before[0] + 1, before[1] + 2)
+
+
+def test_mg_gcr_solve(dev):
+    """MG setup and the fused preconditioned restart-5 solve at 8^4, with
+    a bf16-link smoother, against the generic form on the same hierarchy."""
+    mesh = LatticeMesh((8, 8, 8, 8, 4, 3))
+    d = CudaWilsonDirac.build(wilson.random_links_np(3, mesh), mesh, compress=True,
+                              antiperiodic_t=True, device=dev)
+    a = DiracOperator(d, 0.12)
+    a_smooth = DiracOperator(with_link_dtype(d, torch.bfloat16), 0.12)
+    mgp = setup_mg(torch.Generator(device=dev).manual_seed(4), a, mesh,
+                   MGParams(block=4, n_nullvecs=3), smoother_operator=a_smooth)
+    b = cplx.random(torch.Generator(device=dev).manual_seed(5), d.field_shape, device=dev)
+    its = {}
+    for fused in (True, False):
+        params = GCRParams(tol=1e-6, max_iter=100, restart=5, fused=fused, unroll="cycles")
+        res = gcr_solve(a, b, params, precond=mgp.apply)
+        rr = b - a.apply(res.x)
+        assert res.converged
+        assert float(torch.sqrt(cplx.abs2_sum(rr) / cplx.abs2_sum(b))) < 2e-6
+        its[fused] = res.n_iters
+    assert abs(its[True] - its[False]) <= 1

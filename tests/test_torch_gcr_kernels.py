@@ -1,8 +1,9 @@
-"""Port parity for kernels K2, K3 and K4: the plain versions of
-``gcr_stream_step``, ``ap_update`` and ``basis_flush`` (CPU tensors)
-against the JAX package's Pallas kernels in interpret mode, f32, on the
-main path's operator configuration (two-row links, anti-periodic t).
-Fields and reductions: rtol 1e-5 of each output's scale."""
+"""Port parity for kernels K2, K3, K4, B2 and B9: the plain versions of
+``gcr_stream_step``, ``ap_update``, ``basis_flush``, ``update_r`` and
+``gcr_z_step`` (CPU tensors) against the JAX package's Pallas kernels in
+interpret mode, f32, on the main path's operator configuration (two-row
+links, anti-periodic t). Fields and reductions: rtol 1e-5 of each
+output's scale."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -14,10 +15,11 @@ from mgpgcr_tpu.mesh import LatticeMesh as JMesh
 from mgpgcr_tpu.ops.pallas import gcr_kernels as jgk
 from mgpgcr_tpu.ops.pallas.dslash import compress_links_tmajor, links_to_tmajor
 from mgpgcr_tpu.ops.pallas.gcr_dslash import gcr_stream_step as j_gcr_stream_step
+from mgpgcr_tpu.ops.pallas.gcr_dslash import gcr_z_step as j_gcr_z_step
 from mgpgcr_tpu.ops.wilson_tpu import links_to_tpu
 from mgpgcr_tpu_torch import LatticeMesh, cplx, links_from_numpy
-from mgpgcr_tpu_torch.kernels.gcr_dslash import gcr_stream_step
-from mgpgcr_tpu_torch.kernels.gcr_kernels import ap_update, basis_flush
+from mgpgcr_tpu_torch.kernels.gcr_dslash import gcr_stream_step, gcr_z_step
+from mgpgcr_tpu_torch.kernels.gcr_kernels import ap_update, basis_flush, update_r
 from mgpgcr_tpu_torch.ops import wilson
 
 DIMS = (4, 4, 4, 4)
@@ -61,6 +63,7 @@ def data():
         "links": links,
         "r": field(),
         "az": field(),
+        "z": field(),
         "aps": field((S,)),
         "betas": (rng.standard_normal(S) + 1j * rng.standard_normal(S)).astype(np.complex64),
         "w": (rng.standard_normal((2, S + 1)) + 1j * rng.standard_normal((2, S + 1))).astype(
@@ -122,3 +125,38 @@ def test_basis_flush_matches_jax(data, nb):
     )
     _close(cplx.to_numpy(tx), jcplx.to_numpy(jx))
     _close(cplx.to_numpy(tp), jcplx.to_numpy(jp))
+
+
+@pytest.mark.parametrize("lim", range(1, S_STEP + 1))
+def test_gcr_z_step_matches_jax(data, lim):
+    mesh = data["mesh"]
+    jmesh = JMesh(mesh.dims)
+    links = data["links"]
+    jl = compress_links_tmajor(links_to_tmajor(links_to_tpu(_jcf(links), jmesh)))
+    aps = data["aps"][:S_STEP]
+    want = j_gcr_z_step(
+        jl, _jcf(data["z"]), _jcf(data["r"]), _jcf(aps), jcplx.from_scalar(K, jnp.float32),
+        lim, jmesh, anti_t=True,
+    )
+    tl = links_from_numpy(links, mesh, "cpu", compress=True)
+    got = gcr_z_step(
+        tl, _tcf(data["z"]), _tcf(data["r"]), _tcf(aps), torch.tensor(K, dtype=torch.complex64),
+        lim, mesh, anti_t=True,
+    )
+    _close(cplx.to_numpy(got[0]), jcplx.to_numpy(want[0]))  # az
+    _close(got[1].numpy(), _jscalars(want[1]))  # raw, zeros from lim on
+    rows = list(range(lim)) + [S_STEP]
+    _close(got[2].numpy()[rows], _jscalars(want[2])[rows])
+    assert np.all(got[2].numpy()[lim:S_STEP] == 0)
+
+
+def test_update_r_matches_jax(data):
+    slot = 2
+    rp_j, r2_j = jgk.update_r(
+        _jcf(data["r"]), _jcf(data["aps"]), slot, jcplx.from_scalar(ALPHA, jnp.float32)
+    )
+    rp, r2 = update_r(
+        _tcf(data["r"]), _tcf(data["aps"]), slot, torch.tensor(ALPHA, dtype=torch.complex64)
+    )
+    _close(cplx.to_numpy(rp), jcplx.to_numpy(rp_j))
+    _close(float(r2), float(r2_j))

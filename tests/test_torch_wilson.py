@@ -25,6 +25,7 @@ from mgpgcr_tpu.ops.wilson_tpu import TpuWilsonDirac, field_to_tpu, links_to_tpu
 from mgpgcr_tpu_torch import (
     CudaWilsonDirac,
     LatticeMesh,
+    MGParams,
     SlabWilsonDirac,
     cplx,
     field_from_numpy,
@@ -33,6 +34,7 @@ from mgpgcr_tpu_torch import (
     field_to_slab,
     fields,
     links_from_numpy,
+    mg_from_numpy,
 )
 from mgpgcr_tpu_torch.ops import wilson
 from mgpgcr_tpu_torch.ops.dslash import links_from_tmajor
@@ -159,7 +161,9 @@ def test_field_converters_round_trip():
 
 def test_port_imports_no_jax():
     code = (
-        "import sys, mgpgcr_tpu_torch, mgpgcr_tpu_torch.kernels; "
+        "import sys, mgpgcr_tpu_torch, mgpgcr_tpu_torch.kernels, "
+        "mgpgcr_tpu_torch.kernels.transfer, mgpgcr_tpu_torch.solvers.mg, "
+        "mgpgcr_tpu_torch.solvers.power, mgpgcr_tpu_torch.ops.dense; "
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m == 'mgpgcr_tpu' or m.startswith('mgpgcr_tpu.')]; "
         "assert not bad, bad"
@@ -174,6 +178,10 @@ ENTRY_POINTS = {
     "field_from_numpy": lambda m, lk: field_from_numpy(np.zeros((4, 3, 4, 4, 16), complex)),
     "cplx_random": lambda m, lk: cplx.random(torch.Generator(), (4,)),
     "random_field": lambda m, lk: fields.random_field(torch.Generator(), m),
+    "mg_from_numpy": lambda m, lk: mg_from_numpy(
+        None, m, np.zeros((2, 4, 3, 4, 4, 16), complex), np.zeros((32, 32), complex),
+        MGParams(block=2, n_nullvecs=1),
+    ),
 }
 
 
