@@ -1,14 +1,16 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``mgpgcr_tpu_torch``) on one GPU.
 
-Drives the port's two main paths at the flagship 32^4 size: the 16^4
+Drives the port's main paths at the flagship 32^4 size: the 16^4
 beta = 6.0 gauge field of ``data/links_16_b6.0_s0.npz`` tiled twice along
 t, z, y and x, the Wilson-Dirac operator with two-row f32 links and the
 in-kernel anti-periodic t boundary, A = I - 0.125 D, and restart-5 GCR to
 1e-6: first plain, then right-preconditioned by the two-level multigrid
 V-cycle (block 8^4, 6 null vectors, GCR(4) smoother on bf16 links, dense
-coarse operator), each in the fused form (the hand-written kernels) and
-the generic form.
+coarse operator), each in the fused restart-cycle form (the hand-written
+kernels) and the generic form; then the fused loop form on direction
+stacks (restart with unroll="loop", truncation, residual refresh, MG under
+unroll="auto") and the fused eager MG loop.
 
 Phases, each printed as one JSON line with its wall seconds:
   device    the card's name and power limit (nvidia-smi);
@@ -17,23 +19,27 @@ Phases, each printed as one JSON line with its wall seconds:
   parity    every kernel against its plain PyTorch version at 32^4;
   timing    CUDA-event times of each kernel, its plain version, its bound,
             and one PyTorch call computing the same function where there is
-            one (an einsum for K4, B10 and B11, each checked against the
-            plain version);
+            one (an einsum or a matrix product for K3, K4, B2, B3, B6, B7,
+            B10 and B11, each checked against the plain version);
   solve     the plain path: both solve forms (two runs each, in turns),
             iteration counts, ms per iteration, the independent f64
             residual, launch counts;
   mg_setup  the MG setup's seconds per phase and its property checks;
   mg_solve  the MG path: both solve forms, outer iterations, ms per outer
             iteration, the V-cycle breakdown, the independent f64
-            residual, launch counts.
+            residual, launch counts;
+  loop_solve  the loop-form and eager paths: iterations (and where the
+            history first reaches the tolerance), ms per iteration, the
+            independent f64 residual, launch counts.
 Then the kernel table, the card line and the result line. Any failed
 check raises, and the script exits non-zero. Run: ``python3 chip_smoke.py``
-(``--profile`` adds a torch.profiler breakdown of both fused solves).
+(``--profile`` adds a torch.profiler breakdown of the fused solves).
 """
 
 from __future__ import annotations
 
 import json
+import statistics
 import subprocess
 import sys
 import time
@@ -55,6 +61,7 @@ K_FLOPS = 12 * 8  # psi - k D psi
 FIELD_B = 96  # bytes per site of one f32 field
 LINK_B = {(3, "f32"): 288, (2, "f32"): 192, (3, "bf16"): 144, (2, "bf16"): 96}
 PLAIN_KERNELS = ("dslash_apply", "gcr_stream_step", "ap_update", "basis_flush")
+MG_KERNELS = PLAIN_KERNELS + ("update_r", "gcr_z_step", "restrict", "prolong")
 REPLACES = {
     "dslash_apply": ("dslash", "mgpgcr_tpu/ops/pallas/dslash.py:268", "csrc/dslash.cu"),
     "gcr_stream_step": ("gcr_stream_step", "mgpgcr_tpu/ops/pallas/gcr_dslash.py:57",
@@ -68,7 +75,13 @@ REPLACES = {
                    "csrc/gcr_dslash.cu"),
     "restrict": ("restrict", "mgpgcr_tpu/ops/pallas/transfer.py:96", "csrc/transfer.cu"),
     "prolong": ("prolong", "mgpgcr_tpu/ops/pallas/transfer.py:186", "csrc/transfer.cu"),
+    "update_xr": ("update_xr", "mgpgcr_tpu/ops/pallas/gcr_kernels.py:93", "csrc/gcr_loop.cu"),
+    "beta_dots": ("beta_dots", "mgpgcr_tpu/ops/pallas/gcr_kernels.py:171", "csrc/gcr_loop.cu"),
+    "dir_update": ("dir_update", "mgpgcr_tpu/ops/pallas/gcr_kernels.py:225",
+                   "csrc/gcr_loop.cu"),
 }
+BIG_LIM = 20  # beta_dots past one chunk of 8 rows, lim past the cycles form's 16
+TURN_ROUNDS = 5  # rounds of cycles, loop, loop, cycles in the loop/cycles comparison
 
 
 def emit(phase: str, t0: float, **kw) -> None:
@@ -239,8 +252,17 @@ def mg_kernel_timing(mesh, variants, inp, S: int, table: dict) -> dict:
     ms = cuda_ms(lambda: [update_r(r, aps, s, alpha) for s in range(S)]) / S
     pms = cuda_ms(lambda: [update_r_plain(r, aps, s, alpha) for s in range(S)], reps=5,
                   warmup=1) / S
+    # the library yardstick: r' = r - alpha aps[slot] as one einsum over the
+    # stacked complex [r; aps[0]] with weights [1; -alpha] (leaves out ||r'||^2)
+    st = torch.stack([flat_complex(r), flat_complex(aps[0])])
+    w = torch.stack([torch.ones_like(alpha), -alpha])
+    lms = cuda_ms(lambda: torch.einsum("m,mn->n", w, st))
+    lib = torch.einsum("m,mn->n", w, st)
+    check(rel_err(lib, flat_complex(update_r_plain(r, aps, 0, alpha)[0]))[0] <= FIELD_TOL,
+          "update_r's einsum yardstick")
+    del st, lib
     nbytes = 3 * n_sites * FIELD_B
-    table["update_r"] = (ms, pms, *bound(nbytes, n_sites * 12 * 12), None, nbytes)
+    table["update_r"] = (ms, pms, *bound(nbytes, n_sites * 12 * 12), lms, nbytes)
 
     def zsteps(fn, links):
         for lim in range(1, S + 1):
@@ -309,9 +331,196 @@ def mg_kernel_timing(mesh, variants, inp, S: int, table: dict) -> dict:
     return extra
 
 
+def flat_complex(f):
+    """A CF field (or stack of fields) as one complex tensor, flattened per
+    field: the input of the library yardsticks, built outside their timing."""
+    import torch
+
+    lead = f.shape[:-5]
+    return torch.complex(f.re, f.im).reshape(lead + (-1,))
+
+
+def loop_kernel_parity(fshape, dev, gen, note, S: int):
+    """B6, B3, B7 and K3's r form against their plain versions at 32^4 (the
+    field outputs against f32, the reductions against f64 plain versions).
+    Returns the inputs the timing phase reuses."""
+    import torch
+
+    from mgpgcr_tpu_torch import cplx
+    from mgpgcr_tpu_torch.kernels.gcr_kernels import (
+        ap_update, ap_update_plain, beta_dots, beta_dots_plain, dir_update, dir_update_plain,
+        update_xr, update_xr_plain,
+    )
+
+    x, r, z, az = (cplx.random(gen, fshape, torch.float32, dev) for _ in range(4))
+    ps = cplx.random(gen, (S,) + fshape, torch.float32, dev)
+    aps = cplx.random(gen, (S,) + fshape, torch.float32, dev)
+    alpha = torch.tensor(0.3 - 0.2j, dtype=torch.complex64, device=dev)
+    betas = torch.complex(torch.rand(S, generator=gen, device=dev),
+                          torch.rand(S, generator=gen, device=dev)) - (0.5 + 0.5j)
+    x64, r64, z64, az64, ps64, aps64 = map(f64, (x, r, z, az, ps, aps))
+    for slot in range(S):
+        got = update_xr(x, r, ps, aps, slot, alpha)
+        pl = update_xr_plain(x, r, ps, aps, slot, alpha)
+        p64 = update_xr_plain(x64, r64, ps64, aps64, slot, f64(alpha))
+        note("update_xr", f"x'/slot={slot}", rel_err(got[0], pl[0]), FIELD_TOL)
+        note("update_xr", f"r'/slot={slot}", rel_err(got[1], pl[1]), FIELD_TOL)
+        note("update_xr", f"r2/slot={slot}", rel_err(got[2], p64[2]), DOT_TOL)
+
+    big = cplx.random(gen, (BIG_LIM,) + fshape, torch.float32, dev)
+    cases = [(aps, aps64, lim) for lim in range(1, S + 1)] + [(big, f64(big), BIG_LIM)]
+    for stack, stack64, lim in cases:
+        got = beta_dots(stack, az, lim)
+        note("beta_dots", f"raw/S={stack.shape[0]}/lim={lim}",
+             rel_err(got[:lim], beta_dots_plain(stack64, az64, lim)[:lim]), DOT_TOL)
+        check(bool((got[lim:] == 0).all()), f"beta_dots rows from lim={lim} are zero")
+    del cases
+
+    # restart: slot = lim % S, past the live prefix but at the cycle's end;
+    # truncation: slots inside the prefix, rows the kernel reads and writes
+    b64 = f64(betas)
+    for rr, rr64, form in ((None, None, "r=None"), (r, r64, "r")):
+        for lim, slot in [(lim, lim % S) for lim in range(1, S + 1)] + [(S, 1), (S, S - 2)]:
+            what = f"{form}/lim={lim}/slot={slot}"
+            got = dir_update(z, az, rr, ps.clone(), aps.clone(), betas, slot, lim)
+            pl = dir_update_plain(z, az, rr, ps.clone(), aps.clone(), betas, slot, lim)
+            p64 = dir_update_plain(z64, az64, rr64, ps64.clone(), aps64.clone(), b64, slot, lim)
+            note("dir_update", f"p/{what}", rel_err(got[0][slot], pl[0][slot]), FIELD_TOL)
+            note("dir_update", f"ap/{what}", rel_err(got[1][slot], pl[1][slot]), FIELD_TOL)
+            note("dir_update", f"norm/{what}", rel_err(got[2], p64[2]), DOT_TOL)
+            note("dir_update", f"apr/{what}", rel_err(got[3], p64[3]), DOT_TOL)
+            keep = [j for j in range(S) if j != slot]
+            check(all(bool((got[k][j].re == src[j].re).all() and (got[k][j].im == src[j].im).all())
+                      for k, src in ((0, ps), (1, aps)) for j in keep),
+                  f"dir_update {what} leaves the other rows")
+    for lim in range(1, S + 1):  # K3's r form, as the cycles form calls it
+        slot = lim % S
+        got = ap_update(az, aps.clone(), betas, slot, lim, r=r)
+        pl = ap_update_plain(az, aps.clone(), betas, slot, lim, r=r)
+        p64 = ap_update_plain(az64, aps64.clone(), b64, slot, lim, r=r64)
+        note("ap_update", f"r-form/ap/lim={lim}", rel_err(got[0][slot], pl[0][slot]), FIELD_TOL)
+        note("ap_update", f"r-form/norm/lim={lim}", rel_err(got[1], p64[1]), DOT_TOL)
+        note("ap_update", f"r-form/apr/lim={lim}", rel_err(got[2], p64[2]), DOT_TOL)
+    del x64, r64, z64, az64, ps64, aps64
+    return dict(x=x, r=r, z=z, az=az, ps=ps, aps=aps, alpha=alpha, betas=betas, big=big)
+
+
+def loop_kernel_timing(inp, n_sites: int, S: int, table: dict, variants: dict) -> dict:
+    """CUDA-event times of B6, B3, B7 (both forms) and K3's r form, their
+    plain versions, bounds and library yardsticks. Every yardstick is one
+    PyTorch call on complex tensors stacked outside the timed region,
+    checked against the plain version; it writes new tensors (no in-place
+    stack row) and leaves out the reductions named beside it."""
+    import torch
+
+    from mgpgcr_tpu_torch.kernels.gcr_kernels import (
+        ap_update, ap_update_plain, beta_dots, beta_dots_plain, dir_update, dir_update_plain,
+        update_xr, update_xr_plain,
+    )
+
+    x, r, z, az, ps, aps = (inp[k] for k in ("x", "r", "z", "az", "ps", "aps"))
+    alpha, betas, big = inp["alpha"], inp["betas"], inp["big"]
+    dev = alpha.device
+    fb = n_sites * FIELD_B  # one f32 field
+    lims = range(1, S + 1)
+
+    def cycle(fn):
+        for lim in lims:
+            fn(lim)
+
+    def mean(fn):
+        return sum(fn(lim) for lim in lims) / S
+
+    extra = {}
+    # B6: x' = x + alpha p, r' = r - alpha ap in one einsum (leaves out ||r'||^2)
+    ms = cuda_ms(lambda: [update_xr(x, r, ps, aps, s, alpha) for s in range(S)]) / S
+    pms = cuda_ms(lambda: [update_xr_plain(x, r, ps, aps, s, alpha) for s in range(S)],
+                  reps=5, warmup=1) / S
+    st = torch.stack([torch.stack([flat_complex(x), flat_complex(ps[0])]),
+                      torch.stack([flat_complex(r), flat_complex(aps[0])])])
+    w = torch.stack([torch.stack([torch.ones_like(alpha), alpha]),
+                     torch.stack([torch.ones_like(alpha), -alpha])])
+    lms = cuda_ms(lambda: torch.einsum("km,kmn->kn", w, st))
+    lib = torch.einsum("km,kmn->kn", w, st)
+    want = update_xr_plain(x, r, ps, aps, 0, alpha)
+    for got, ref in zip(lib, want[:2]):
+        check(rel_err(got, flat_complex(ref))[0] <= FIELD_TOL, "update_xr's einsum yardstick")
+    del st, lib, want
+    table["update_xr"] = (ms, pms, *bound(6 * fb, n_sites * 12 * 20), lms, 6 * fb)
+
+    # B3: raw = conj(aps[0:lim]) @ az, one complex matrix-vector product
+    ms = cuda_ms(lambda: cycle(lambda lim: beta_dots(aps, az, lim))) / S
+    pms = cuda_ms(lambda: cycle(lambda lim: beta_dots_plain(aps, az, lim)), reps=5,
+                  warmup=1) / S
+    apc, azc = torch.complex(aps.re, -aps.im).reshape(S, -1), flat_complex(az)
+    lms = cuda_ms(lambda: cycle(lambda lim: apc[:lim] @ azc)) / S
+    ref = beta_dots_plain(f64(aps), f64(az), S)
+    check(rel_err(apc @ azc, ref)[0] <= DOT_TOL, "beta_dots's matrix-vector yardstick")
+    del apc, ref
+    nbytes = mean(lambda lim: (lim + 1) * fb)
+    table["beta_dots"] = (ms, pms, *bound(nbytes, mean(lambda lim: n_sites * 12 * 8 * lim)),
+                          lms, nbytes)
+    extra["beta_dots_lim20_ms"] = cuda_ms(lambda: beta_dots(big, az, BIG_LIM))
+    extra["beta_dots_lim20_bound_ms"] = bound((BIG_LIM + 1) * fb, 0)[0]
+    bigc = torch.complex(big.re, -big.im).reshape(BIG_LIM, -1)
+    extra["beta_dots_lim20_library_ms"] = cuda_ms(lambda: bigc @ azc)
+    del bigc, azc
+
+    # B7: [p; ap] = sum_m w_m [[z, az]; [ps_j, aps_j]] with w = [1; -beta], one
+    # einsum (leaves out ||ap||^2 and <ap, r>); K3 the same on [az; aps]
+    sps, saps = ps.clone(), aps.clone()
+    for form, rr in (("r=None", None), ("r", r)):
+        ms = cuda_ms(lambda: cycle(lambda lim: dir_update(z, az, rr, sps, saps, betas,
+                                                           lim % S, lim))) / S
+        pms = cuda_ms(lambda: cycle(lambda lim: dir_update_plain(z, az, rr, sps, saps, betas,
+                                                                  lim % S, lim)),
+                      reps=3, warmup=1) / S
+        nbytes = mean(lambda lim: (2 * lim + 4 + (rr is not None)) * fb)
+        flops = mean(lambda lim: n_sites * 12 * (16 * lim + 12))
+        if rr is None:
+            table["dir_update"] = (ms, pms, *bound(nbytes, flops), None, nbytes)
+        else:
+            variants["dir_update"] = {"r": {"ms": ms, "plain_ms": pms,
+                                            "bound_ms": bound(nbytes, flops)[0]}}
+    st = torch.stack([torch.stack([flat_complex(z), flat_complex(az)])]
+                     + [torch.stack([flat_complex(ps[j]), flat_complex(aps[j])])
+                        for j in range(S)])
+    ws = {lim: torch.cat([torch.ones(1, dtype=betas.dtype, device=dev), -betas[:lim]])
+          for lim in lims}
+    lms = cuda_ms(lambda: cycle(lambda lim: torch.einsum("m,mkn->kn", ws[lim], st[:lim + 1])))
+    lms /= S
+    lib = torch.einsum("m,mkn->kn", ws[S], st)
+    want = dir_update_plain(z, az, None, ps.clone(), aps.clone(), betas, 0, S)
+    for got, ref in zip(lib, (want[0][0], want[1][0])):
+        check(rel_err(got, flat_complex(ref))[0] <= FIELD_TOL, "dir_update's einsum yardstick")
+    table["dir_update"] = table["dir_update"][:4] + (lms,) + table["dir_update"][5:]
+    variants["dir_update"]["r"]["library_ms"] = lms
+    del st, lib, want
+
+    st3 = torch.cat([flat_complex(az)[None], flat_complex(aps)])
+    lms3 = cuda_ms(lambda: cycle(lambda lim: ws[lim] @ st3[:lim + 1])) / S
+    want = ap_update_plain(az, aps.clone(), betas, 0, S)
+    check(rel_err(ws[S] @ st3, flat_complex(want[0][0]))[0] <= FIELD_TOL,
+          "ap_update's matrix-vector yardstick")
+    del st3, want
+    table["ap_update"] = table["ap_update"][:4] + (lms3,) + table["ap_update"][5:]
+    ms = cuda_ms(lambda: cycle(lambda lim: ap_update(az, saps, betas, lim % S, lim, r=r))) / S
+    pms = cuda_ms(lambda: cycle(lambda lim: ap_update_plain(az, saps, betas, lim % S, lim, r=r)),
+                  reps=5, warmup=1) / S
+    nbytes = mean(lambda lim: (lim + 3) * fb)
+    variants["ap_update"] = {"r": {"ms": ms, "plain_ms": pms,
+                                   "bound_ms": bound(nbytes, mean(
+                                       lambda lim: n_sites * 12 * (8 * lim + 12)))[0],
+                                   "library_ms": lms3}}
+    del sps, saps
+    return extra
+
+
 def mg_path(canon, mesh, dev, card: str, independent_relres, profile: bool) -> dict:
     """MG setup and the MG-preconditioned restart-5 solve of the second
-    slice, fused and generic, with the V-cycle breakdown."""
+    slice, fused and generic, with the V-cycle breakdown. Returns the fused
+    solve's launch counts, its outer iterations and what the loop path
+    reuses: the operator, the right-hand side and the hierarchy."""
     import torch
 
     from mgpgcr_tpu_torch import (
@@ -393,8 +602,8 @@ def mg_path(canon, mesh, dev, card: str, independent_relres, profile: bool) -> d
     check(abs(solves["fused"]["outer_iters"] - solves["generic"]["outer_iters"]) <= 1,
           "MG fused and generic outer iteration counts within 1")
     mg_counts = solves["fused"]["launches"]
-    check(all(v > 0 for v in mg_counts.values()),
-          f"every kernel launched on the MG path {mg_counts}")
+    check(all(mg_counts[k] > 0 for k in MG_KERNELS),
+          f"every kernel of the MG path launched {mg_counts}")
 
     # the V-cycle's pieces on the right-hand side, as apply runs them
     sp, cp = params.smoother_gcr, params.coarse_gcr
@@ -417,7 +626,104 @@ def mg_path(canon, mesh, dev, card: str, independent_relres, profile: bool) -> d
     if profile:
         profile_solve(a, b, GCRParams(tol=1e-6, max_iter=200, restart=RESTART, fused=True,
                                       unroll="cycles"), card, mgp.apply, "mg_profile")
-    return mg_counts
+    return dict(counts=mg_counts, outer_iters=solves["fused"]["outer_iters"], a=a, b=b, mgp=mgp)
+
+
+def loop_path(a, b, mgp, card: str, independent_relres, cycles_iters: dict,
+              profile: bool) -> dict:
+    """The fused loop form on direction stacks (restart with unroll="loop",
+    truncation, residual refresh; MG under unroll="auto", the loop form with
+    the z-step) and the fused eager MG loop checking every 4th iteration,
+    on the plain path's operator and right-hand side. Each form runs once
+    to warm up and twice timed; then the loop form and the cycles form run
+    in turns, plain and MG. Returns the launch counts of each form's first
+    timed run, summed."""
+    import torch
+
+    from mgpgcr_tpu_torch import GCRParams, gcr_solve, gcr_solve_eager, kernels
+
+    t1 = time.perf_counter()
+    plain = dict(tol=1e-6, max_iter=500)
+    mg = dict(tol=1e-6, max_iter=200, restart=RESTART, fused=True)
+    # truncation is another algorithm than restart: its count is held to
+    # the generic solve with the same truncation
+    trunc_generic = gcr_solve(a, b, GCRParams(truncation=RESTART, **plain)).n_iters
+    forms = {
+        "restart_loop": (lambda: gcr_solve(a, b, GCRParams(restart=RESTART, fused=True,
+                                                           unroll="loop", **plain)),
+                         cycles_iters["plain"], 2, ("update_xr", "beta_dots", "dir_update")),
+        "truncation": (lambda: gcr_solve(a, b, GCRParams(truncation=RESTART, fused=True,
+                                                         **plain)),
+                       trunc_generic, 2, ("update_xr", "beta_dots", "dir_update")),
+        "refresh": (lambda: gcr_solve(a, b, GCRParams(restart=RESTART, residual_refresh=10,
+                                                      fused=True, **plain)),
+                    cycles_iters["plain"], 2, ("update_xr", "beta_dots", "dir_update")),
+        "mg_auto": (lambda: gcr_solve(a, b, GCRParams(**mg), precond=mgp.apply),
+                    cycles_iters["mg"], 1, ("update_xr", "gcr_z_step", "dir_update")),
+        "mg_eager": (lambda: gcr_solve_eager(a, b, GCRParams(**mg), precond=mgp.apply,
+                                             check_every=4),
+                     cycles_iters["mg"], 1, ("update_xr", "beta_dots", "dir_update")),
+    }
+    out, total = {}, {}
+    for name, (run, want, slack, need) in forms.items():
+        run()  # warm-up
+        for _ in range(2):
+            torch.cuda.synchronize()
+            kernels.reset_launches()
+            s0 = time.perf_counter()
+            res = run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - s0
+            counts = kernels.launch_counts()
+            check(res.converged, f"{name} solve converged")
+            check(res.x.shape == b.shape and bool(torch.isfinite(res.x.re).all())
+                  and bool(torch.isfinite(res.x.im).all()), f"{name} solution finite")
+            rel = independent_relres(res.x)
+            check(rel <= 2e-6, f"{name} independent residual {rel} <= 2e-6")
+            if name in out:
+                out[name]["seconds"].append(wall)
+                check(out[name]["launches"] == counts and out[name]["iters"] == res.n_iters,
+                      f"{name} runs repeat")
+                continue
+            hist = res.history_list()
+            # the eager loop reads the norm every 4th iteration and may run
+            # up to 3 past the iteration that reached the tolerance
+            reached = next(i for i, h in enumerate(hist) if h <= 1e-6)
+            check(abs(reached - want) <= slack,
+                  f"{name} reaches the tolerance at {reached}, against {want} +- {slack}")
+            check(reached <= res.n_iters <= reached + (3 if name == "mg_eager" else 0),
+                  f"{name} stops {res.n_iters} after reaching the tolerance at {reached}")
+            check(all(counts[k] > 0 for k in need), f"{name} launched {need}: {counts}")
+            out[name] = {"iters": res.n_iters, "reached_tol_at": reached, "compare_to": want,
+                         "relres": res.final_relres, "independent_relres_f64": rel,
+                         "seconds": [wall], "launches": counts}
+            for k, v in counts.items():
+                total[k] = total.get(k, 0) + v
+    for v in out.values():
+        v["ms_per_iter"] = [1e3 * w / max(v["iters"], 1) for w in v["seconds"]]
+    # the loop form against the cycles form on the host clock, in turns
+    # (cycles, loop, loop, cycles per round), ms per iteration
+    cycles = {"plain": lambda: gcr_solve(a, b, GCRParams(restart=RESTART, fused=True, **plain)),
+              "mg": lambda: gcr_solve(a, b, GCRParams(unroll="cycles", **mg), precond=mgp.apply)}
+    loops = {"plain": forms["restart_loop"][0], "mg": forms["mg_auto"][0]}
+    turns = {}
+    for key in cycles:
+        ms = {"cycles": [], "loop": []}
+        for form in ("cycles", "loop", "loop", "cycles") * TURN_ROUNDS:
+            torch.cuda.synchronize()
+            s0 = time.perf_counter()
+            res = (cycles if form == "cycles" else loops)[key]()
+            torch.cuda.synchronize()
+            ms[form].append(1e3 * (time.perf_counter() - s0) / res.n_iters)
+        turns[key] = {**ms, **{f"{f}_median": statistics.median(v) for f, v in ms.items()}}
+    emit("loop_solve", t1, card=card, k=K, tol=1e-6, ring=RESTART, residual_refresh=10,
+         eager_check_every=4, truncation_generic_iters=trunc_generic, forms=out,
+         cycles_vs_loop_ms_per_iter=turns)
+    if profile:
+        profile_solve(a, b, GCRParams(restart=RESTART, fused=True, unroll="loop", **plain), card,
+                      label="loop_profile")
+        profile_solve(a, b, GCRParams(**mg), card, mgp.apply, "mg_loop_profile")
+    return total
 
 
 def main() -> int:
@@ -495,14 +801,15 @@ def main() -> int:
 
     # ---- parity: every kernel against its plain version at 32^4 ----------
     t1 = time.perf_counter()
-    max_abs = {k: 0.0 for k in REPLACES}
+    max_abs = {k: 0.0 for k in REPLACES}  # field outputs against the f32 plain version
+    max_abs_dot = {k: 0.0 for k in REPLACES}  # reductions against the f64 one
     worst = {}
 
     def note(kname, what, err, tol):
         rel, ab = err
         check(rel <= tol, f"{kname} {what}: {rel} > {tol}")
-        if tol == FIELD_TOL:  # field outputs; reductions are held against f64
-            max_abs[kname] = max(max_abs[kname], ab)
+        held = max_abs if tol == FIELD_TOL else max_abs_dot
+        held[kname] = max(held[kname], ab)
         worst[f"{kname}:{what}"] = rel
 
     for (rows, lname), lt in variants.items():
@@ -552,10 +859,11 @@ def main() -> int:
         note("basis_flush", f"x/nb={nb}", rel_err(got[0], ref[0]), FIELD_TOL)
         note("basis_flush", f"p0/nb={nb}", rel_err(got[1], ref[1]), FIELD_TOL)
     mg_inputs = mg_kernel_parity(mesh, variants, gen, note, S)
+    loop_inputs = loop_kernel_parity(fshape, dev, gen, note, S)
     torch.cuda.synchronize()
     emit("parity", t1, cases=len(worst), field_tol=FIELD_TOL, dot_tol=DOT_TOL,
          worst={k: max(v for kk, v in worst.items() if kk.startswith(k + ":")) for k in max_abs},
-         max_abs_err=max_abs)
+         max_abs_err=max_abs, max_abs_err_reductions=max_abs_dot)
 
     # ---- timing ------------------------------------------------------------
     t1 = time.perf_counter()
@@ -618,11 +926,14 @@ def main() -> int:
     f_flops = n_sites * 12 * 16 * nb
     table["basis_flush"] = (ms, pms, *bound(f_bytes, f_flops), lms, f_bytes)
     extra = mg_kernel_timing(mesh, variants, mg_inputs, S, table)
+    kernel_variants = {}  # the r forms of K3 and B7
+    extra.update(loop_kernel_timing(loop_inputs, n_sites, S, table, kernel_variants))
     torch.cuda.synchronize()
     emit("timing", t1, card=card, dslash_variants_ms=variant_ms, **extra,
          kernels={k: {"ms": v[0], "plain_ms": v[1], "bound_ms": v[2], "bound_by": v[3],
-                      "library_ms": v[4], "bytes": v[5]} for k, v in table.items()})
-    del aps, r, psi, variants, mg_inputs, basis, basis_all
+                      "library_ms": v[4], "bytes": v[5]} for k, v in table.items()},
+         variants=kernel_variants)
+    del aps, r, psi, variants, mg_inputs, loop_inputs, basis, basis_all
 
     # ---- solve: the plain path --------------------------------------------
     t1 = time.perf_counter()
@@ -682,15 +993,25 @@ def main() -> int:
     del op, a
 
     # ---- the MG path -------------------------------------------------------
-    mg_counts = mg_path(canon, mesh, dev, card, independent_relres, profile)
+    mg = mg_path(canon, mesh, dev, card, independent_relres, profile)
+
+    # ---- the loop-form and eager paths ---------------------------------------
+    loop_counts = loop_path(mg["a"], mg["b"], mg["mgp"], card, independent_relres,
+                            {"plain": solves["fused"]["iters"], "mg": mg["outer_iters"]}, profile)
 
     rows = []
     for kname, (short, replaces, source) in REPLACES.items():
         ms, pms, bms, by, lms, _ = table[kname]
-        rows.append({"name": short, "route": "cuda", "source": f"mgpgcr_tpu_torch/{source}",
-                     "replaces": replaces, "launches": plain_counts[kname] + mg_counts[kname],
-                     "max_abs_err": max_abs[kname], "ms": ms, "plain_ms": pms,
-                     "bound_ms": bms, "bound_by": by, "library_ms": lms})
+        launches = plain_counts[kname] + mg["counts"][kname] + loop_counts[kname]
+        check(launches > 0, f"{kname} launched on the main paths")
+        # beta_dots has no field output: its error is that of its dots
+        err = max_abs_dot[kname] if kname == "beta_dots" else max_abs[kname]
+        row = {"name": short, "route": "cuda", "source": f"mgpgcr_tpu_torch/{source}",
+               "replaces": replaces, "launches": launches, "max_abs_err": err,
+               "ms": ms, "plain_ms": pms, "bound_ms": bms, "bound_by": by, "library_ms": lms}
+        if kname in kernel_variants:
+            row["variants"] = kernel_variants[kname]
+        rows.append(row)
     print(json.dumps({"kernels": rows}))
     print(f"total_seconds {time.perf_counter() - t0:.1f}")
     print(card)

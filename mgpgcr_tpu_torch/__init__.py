@@ -4,8 +4,9 @@ Fields are split re/im ``cplx.CF`` pairs in the slab layout
 ``(4, 3, T, Z, Y*X)``; the Wilson--Dirac operator ``A = I - kD`` runs on
 hand-written CUDA kernels for Hopper (``csrc/``, built by one ``nvcc`` call
 at first use and bound with ``ctypes``), and flexible GCR runs either as
-the generic loop or as the restart-cycle form through the kernels, plain
-or with the two-level multigrid preconditioner (``setup_mg``). Entry
+the generic loop or through the kernels, in the restart-cycle form or the
+loop form on direction stacks (and as the host-driven ``gcr_solve_eager``),
+plain or with the two-level multigrid preconditioner (``setup_mg``). Entry
 points run on CUDA unless the caller passes ``device="cpu"``; CPU tensors
 take each kernel's plain PyTorch version. The JAX package ``mgpgcr_tpu``
 is the reference this package is held against.
@@ -28,7 +29,7 @@ from mgpgcr_tpu_torch.ops.wilson_slab import (
     links_to_slab,
     with_link_dtype,
 )
-from mgpgcr_tpu_torch.solvers.gcr import GCRSolver, gcr_solve
+from mgpgcr_tpu_torch.solvers.gcr import GCRSolver, gcr_solve, gcr_solve_eager, gcr_solve_jit
 from mgpgcr_tpu_torch.solvers.mg import MGPreconditioner, mg_from_numpy, setup_mg
 from mgpgcr_tpu_torch.solvers.params import GCRParams, MGParams
 from mgpgcr_tpu_torch.solvers.power import inverse_power_vectors
@@ -55,6 +56,8 @@ __all__ = [
     "GCRSolver",
     "SolveResult",
     "gcr_solve",
+    "gcr_solve_eager",
+    "gcr_solve_jit",
     "MGPreconditioner",
     "setup_mg",
     "mg_from_numpy",

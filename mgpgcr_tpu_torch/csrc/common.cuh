@@ -252,13 +252,19 @@ __device__ __forceinline__ void block_put(double* sm, int nv, int idx, float v) 
   if ((threadIdx.x & 31) == 0) sm[(threadIdx.x >> 5) * nv + idx] = s;
 }
 
-__device__ __forceinline__ void block_flush(const double* sm, int nv, double* partials) {
+// block b's nv values go to partials[b * stride + i]
+__device__ __forceinline__ void block_flush_strided(const double* sm, int nv, double* partials,
+                                                    long long stride) {
   __syncthreads();
   for (int i = threadIdx.x; i < nv; i += blockDim.x) {
     double s = 0.0;
     for (int w = 0; w < kWarps; ++w) s += sm[w * nv + i];
-    partials[static_cast<long long>(blockIdx.x) * nv + i] = s;
+    partials[static_cast<long long>(blockIdx.x) * stride + i] = s;
   }
+}
+
+__device__ __forceinline__ void block_flush(const double* sm, int nv, double* partials) {
+  block_flush_strided(sm, nv, partials, nv);
 }
 
 // res[i] = sum over blocks b of partials[b * nv + i], for i < nv; launched

@@ -1,8 +1,10 @@
 // K3, K4 and B2: the streaming GCR algebra of the restart-cycle solve.
 //
 // K3 ap_update replaces mgpgcr_tpu/ops/pallas/gcr_kernels.py::_k3z_kernel
-// (via ap_update, called with r=None):
-//   aps[slot] = az - sum_{j<lim} beta_j aps_j   (in place), ||aps[slot]||^2.
+// (via ap_update):
+//   aps[slot] = az - sum_{j<lim} beta_j aps_j   (in place), ||aps[slot]||^2,
+//   and <aps[slot], r> in the r form (r given: the cycles form on
+//   operators without a one-pass step).
 // K4 basis_flush replaces ::_k4z_kernel (via basis_flush):
 //   x' = x + sum_m wx_m b_m,   p0' = sum_m wp_m b_m   over nb basis fields.
 // B2 update_r replaces ::_k1r_kernel (via update_r), the residual update
@@ -13,10 +15,10 @@
 // kernels cut the fields into VMEM row windows on a sequential grid and
 // carry the norm in SMEM; here a grid-stride loop walks the flat fields,
 // neighbouring threads on neighbouring floats, so every field streams
-// through DRAM once: K3 reads (1 + lim) fields and writes one, K4 reads
-// 1 + nb and writes two. K3 reads only the live prefix j < lim, and may
-// write a slot inside it: each thread reads all of its element's inputs
-// before it writes. The coefficients beta, wx and wp and the basis
+// through DRAM once: K3 reads (1 + lim) fields, and r in its r form, and
+// writes one; K4 reads 1 + nb and writes two. K3 reads only the live
+// prefix j < lim, and may write a slot inside it: each thread reads all of
+// its element's inputs before it writes. The coefficients beta, wx and wp and the basis
 // pointers are read from device memory. The norms are reduced as in K2:
 // f32 per thread, f64 from the warp on, block partials added in order.
 // B2 reads r and one stack row and writes r': three field passes.
@@ -35,10 +37,11 @@ static int stride_blocks(long long M) {
 
 __global__ void __launch_bounds__(kThreads)
 ap_update_kernel(const float* __restrict__ az_re, const float* __restrict__ az_im,
-                 float* aps_re, float* aps_im, const float* __restrict__ betas,
-                 double* __restrict__ partials, long long M, int lim, int slot) {
-  __shared__ double sm[kWarps];
-  float nrm = 0.f;
+                 const float* __restrict__ r_re, const float* __restrict__ r_im, float* aps_re,
+                 float* aps_im, const float* __restrict__ betas, double* __restrict__ partials,
+                 long long M, int lim, int slot) {
+  __shared__ double sm[kWarps * 3];
+  float nrm = 0.f, dre = 0.f, dim = 0.f;
   const long long step = static_cast<long long>(gridDim.x) * blockDim.x;
   for (long long e = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x; e < M;
        e += step) {
@@ -52,9 +55,21 @@ ap_update_kernel(const float* __restrict__ az_re, const float* __restrict__ az_i
     aps_re[slot * M + e] = are;
     aps_im[slot * M + e] = aim;
     nrm += are * are + aim * aim;
+    if (r_re) {
+      const float rr = r_re[e], ri = r_im[e];
+      dre += are * rr + aim * ri;
+      dim += are * ri - aim * rr;
+    }
   }
-  block_put(sm, 1, 0, nrm);
-  block_flush(sm, 1, partials);
+  if (r_re) {
+    block_put(sm, 3, 0, dre);
+    block_put(sm, 3, 1, dim);
+    block_put(sm, 3, 2, nrm);
+    block_flush(sm, 3, partials);
+  } else {
+    block_put(sm, 1, 0, nrm);
+    block_flush(sm, 1, partials);
+  }
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -105,18 +120,20 @@ update_r_kernel(const float* __restrict__ r_re, const float* __restrict__ r_im,
 
 }  // namespace mg
 
-// partials: kMaxBlocks doubles; apn: one float
-extern "C" int mg_ap_update(const float* az_re, const float* az_im, float* aps_re, float* aps_im,
-                            const float* betas, double* partials, float* apn, long long M,
-                            int lim, int slot, void* stream) {
+// r_re/r_im null: no dot. partials: kMaxBlocks * 3 doubles; res: ||ap||^2,
+// or with r [<ap, r> re, <ap, r> im, ||ap||^2]
+extern "C" int mg_ap_update(const float* az_re, const float* az_im, const float* r_re,
+                            const float* r_im, float* aps_re, float* aps_im, const float* betas,
+                            double* partials, float* res, long long M, int lim, int slot,
+                            void* stream) {
   using namespace mg;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int nblocks = stride_blocks(M);
-  ap_update_kernel<<<nblocks, kThreads, 0, s>>>(az_re, az_im, aps_re, aps_im, betas, partials, M,
-                                                lim, slot);
+  ap_update_kernel<<<nblocks, kThreads, 0, s>>>(az_re, az_im, r_re, r_im, aps_re, aps_im, betas,
+                                                partials, M, lim, slot);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(reduce_partials(partials, nblocks, 1, apn, s));
+  return static_cast<int>(reduce_partials(partials, nblocks, r_re ? 3 : 1, res, s));
 }
 
 // basis: device array of 2 * nb pointers, the nb real planes then the nb

@@ -40,8 +40,9 @@ _SIGNATURES = {
     # r re/im, aps re/im, links re/im, alpha, k, r' re/im, az re/im,
     # partials, res, S, lim, T, Z, Y, X, rows, bf16, anti_t, stream
     "mg_gcr_stream_step": [_P] * 14 + [_I] * 9 + [_P],
-    # az re/im, aps re/im, betas, partials, apn, M, lim, slot, stream
-    "mg_ap_update": [_P] * 7 + [_L, _I, _I, _P],
+    # az re/im, r re/im (nullable), aps re/im, betas, partials, res, M, lim,
+    # slot, stream
+    "mg_ap_update": [_P] * 9 + [_L, _I, _I, _P],
     # x re/im, basis pointer table, wx, wp, x' re/im, p0' re/im, M, nb, stream
     "mg_basis_flush": [_P] * 9 + [_L, _I, _P],
     # r re/im, aps re/im, alpha, partials, r' re/im, r2, M, slot, stream
@@ -49,6 +50,14 @@ _SIGNATURES = {
     # r re/im, aps re/im, z re/im, links re/im, k, az re/im, partials, res,
     # S, lim, T, Z, Y, X, rows, bf16, anti_t, stream
     "mg_gcr_z_step": [_P] * 13 + [_I] * 9 + [_P],
+    # x re/im, r re/im, ps re/im, aps re/im, alpha, partials, x' re/im,
+    # r' re/im, r2, M, slot, stream
+    "mg_update_xr": [_P] * 15 + [_L, _I, _P],
+    # aps re/im, az re/im, partials, out, M, S, lim, stream
+    "mg_beta_dots": [_P] * 6 + [_L, _I, _I, _P],
+    # z re/im, az re/im, r re/im (nullable), ps re/im, aps re/im, betas,
+    # partials, res, M, lim, slot, stream
+    "mg_dir_update": [_P] * 13 + [_L, _I, _I, _P],
     # q re/im, x re/im, partials, out re/im, ne, T, Z, Y, X, bt, bz, by, bx,
     # bf16 basis, stream
     "mg_restrict": [_P] * 7 + [_I] * 10 + [_P],

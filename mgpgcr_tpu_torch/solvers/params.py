@@ -20,13 +20,14 @@ class GCRParams:
     Stopping: relative residual ||r||/||rhs|| <= tol, or max_iter.
     residual_refresh: every N iterations replace the recursive residual by
       rhs - A x (0 = off).
-    fused: run the restart-cycle solve through the hand-written kernels;
-      needs ``restart`` <= 16, no residual_refresh, and A = I - kD over
-      ``CudaWilsonDirac``.
-    unroll: the JAX package's choice of fused body form ("auto", "cycles",
-      "loop"); "auto" is "cycles" without a preconditioner and "loop" with
-      one. The port has the cycles form only; the fused solve refuses
-      "loop" (and so "auto" with a preconditioner).
+    fused: run the solve through the hand-written kernels, on any operator
+      (A = I - kD over ``CudaWilsonDirac`` also fuses the operator into the
+      one-pass steps).
+    unroll: the fused body's form, as in the JAX package: "cycles" runs
+      restart cycles in the z-basis, "loop" one iteration at a time on the
+      direction stacks; "auto" is "cycles" without a preconditioner and
+      "loop" with one. Truncation, residual_refresh and restart > 16 always
+      take the loop form.
     """
 
     tol: float = 1e-13

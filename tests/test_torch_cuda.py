@@ -16,6 +16,7 @@ from mgpgcr_tpu_torch import (
     MGParams,
     cplx,
     gcr_solve,
+    gcr_solve_eager,
     links_from_numpy,
     setup_mg,
     with_link_dtype,
@@ -32,8 +33,14 @@ from mgpgcr_tpu_torch.kernels.gcr_kernels import (
     ap_update_plain,
     basis_flush,
     basis_flush_plain,
+    beta_dots,
+    beta_dots_plain,
+    dir_update,
+    dir_update_plain,
     update_r,
     update_r_plain,
+    update_xr,
+    update_xr_plain,
 )
 from mgpgcr_tpu_torch.kernels.transfer import prolong, prolong_plain, restrict, restrict_plain
 from mgpgcr_tpu_torch.ops import wilson
@@ -170,3 +177,82 @@ def test_mg_gcr_solve(dev):
         assert float(torch.sqrt(cplx.abs2_sum(rr) / cplx.abs2_sum(b))) < 2e-6
         its[fused] = res.n_iters
     assert abs(its[True] - its[False]) <= 1
+
+
+# the loop form's kernels at 8^4 and on a ragged lattice; S = 20 takes B3
+# past one chunk of 8 rows and lim past 16
+@pytest.mark.parametrize("dims", [(8, 8, 8, 8), (2, 6, 3, 10)], ids=lambda d: "x".join(map(str, d)))
+@pytest.mark.parametrize("S", [3, 20])
+def test_loop_kernels(dev, dims, S):
+    _, _, gen, shape = _setup(dims, dev, 2, torch.float32)
+    x, r, z, az = (cplx.random(gen, shape, torch.float32, dev) for _ in range(4))
+    ps = cplx.random(gen, (S,) + shape, torch.float32, dev)
+    aps = cplx.random(gen, (S,) + shape, torch.float32, dev)
+    alpha = torch.tensor(0.4 + 0.1j, dtype=torch.complex64, device=dev)
+    betas = torch.complex(torch.rand(S, generator=gen, device=dev),
+                          torch.rand(S, generator=gen, device=dev)) - (0.5 + 0.5j)
+    for slot in (0, S - 1):
+        before = update_xr.launches
+        for g, w in zip(update_xr(x, r, ps, aps, slot, alpha),
+                        update_xr_plain(x, r, ps, aps, slot, alpha)):
+            _close(g, w)
+        assert update_xr.launches == before + 1
+    for lim in sorted({1, min(S, 8), min(S, 9), S}):
+        got = beta_dots(aps, az, lim)
+        _close(got, beta_dots_plain(aps, az, lim))
+        assert bool((got[lim:] == 0).all())
+    # the ring slot past the live prefix, and inside it (truncation)
+    for rr in (None, r):
+        for lim, slot in ((S - 1, S - 1), (S, 1)):
+            got = dir_update(z, az, rr, ps.clone(), aps.clone(), betas, slot, lim)
+            want = dir_update_plain(z, az, rr, ps.clone(), aps.clone(), betas, slot, lim)
+            for g, w in zip(got, want):
+                _close(g, w)
+    for lim, slot in ((S - 1, S - 1), (S, 0)):
+        got = ap_update(az, aps.clone(), betas, slot, lim, r=r)
+        want = ap_update_plain(az, aps.clone(), betas, slot, lim, r=r)
+        for g, w in zip(got, want):
+            _close(g, w)
+
+
+def test_loop_form_solves(dev):
+    """The fused loop form (restart with unroll="loop", truncation,
+    residual refresh, restart 20), the fused eager form and the
+    preconditioned cycles form on an odd t extent (beta_dots and the r form
+    of ap_update) at small size: each converges, and the forms' kernels
+    launched."""
+    def problem(dims):
+        mesh = LatticeMesh((*dims, 4, 3))
+        d = CudaWilsonDirac.build(wilson.random_links_np(3, mesh), mesh, compress=True,
+                                  antiperiodic_t=True, device=dev)
+        b = cplx.random(torch.Generator(device=dev).manual_seed(5), d.field_shape, device=dev)
+        return DiracOperator(d, 0.12), b
+
+    def relres(a, b, x):
+        rr = b - a.apply(x)
+        return float(torch.sqrt(cplx.abs2_sum(rr) / cplx.abs2_sum(b)))
+
+    a, b = problem((8, 8, 8, 8))
+    base = dict(tol=1e-6, max_iter=200)
+    ref = gcr_solve(a, b, GCRParams(restart=5, **base))
+    for kw in (dict(restart=5, unroll="loop"), dict(truncation=5),
+               dict(restart=5, residual_refresh=10), dict(restart=20)):
+        before = (update_xr.launches, beta_dots.launches, dir_update.launches)
+        res = gcr_solve(a, b, GCRParams(fused=True, **base, **kw))
+        assert res.converged and relres(a, b, res.x) < 2e-6
+        assert update_xr.launches > before[0] and beta_dots.launches > before[1]
+        assert dir_update.launches > before[2]
+        if kw.get("restart") == 5:
+            assert abs(res.n_iters - ref.n_iters) <= 2
+    res = gcr_solve_eager(a, b, GCRParams(fused=True, restart=5, **base), check_every=4)
+    assert res.converged and relres(a, b, res.x) < 2e-6
+    assert ref.n_iters - 2 <= res.n_iters <= ref.n_iters + 5
+
+    # preconditioned, odd t: no z-step (the identity stands for M)
+    a, b = problem((3, 4, 4, 8))
+    before = (ap_update.launches, beta_dots.launches, update_r.launches)
+    res = gcr_solve(a, b, GCRParams(fused=True, restart=5, unroll="cycles", **base),
+                    precond=lambda v: v)
+    assert res.converged and relres(a, b, res.x) < 2e-6
+    assert ap_update.launches > before[0] and beta_dots.launches > before[1]
+    assert update_r.launches > before[2]

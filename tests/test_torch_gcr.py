@@ -1,7 +1,8 @@
 """Port parity for the GCR solver: the port's generic loop and its
 restart-cycle fused form (K2-K4 through their plain versions on CPU
 tensors) against ``mgpgcr_tpu.gcr_solve`` on the same operator (same
-links, anti-periodic t, same k and right-hand side).
+links, anti-periodic t, same k and right-hand side). The loop form and the
+eager forms are held to JAX in test_torch_gcr_loop.py.
 
 Generic path, float64: residual histories equal to rtol 1e-10 (atol
 1e-13), same iteration count. Fused path: float64 to rtol 1e-10 (atol 1e-13), and
@@ -137,15 +138,20 @@ def test_fused_stops_mid_cycle_at_max_iter(problem):
 
 
 def test_fused_refuses_what_it_cannot_run(problem):
+    """Truncation and an operator without a one-pass step were once refused
+    by the fused solve. It now runs both: truncation in the loop form
+    (update_xr, beta_dots, dir_update), ``SlabWilsonDirac`` in the cycles
+    form (update_r, beta_dots, the r form of ap_update); both match JAX."""
     a, b = _port(problem, torch.float64)
-    with pytest.raises(NotImplementedError):
-        gcr_solve(a, b, GCRParams(max_iter=5, truncation=4, fused=True))
+    kw = GENERIC["truncation"]
+    got = gcr_solve(a, b, GCRParams(fused=True, **kw))
+    _compare(got, _jax_solve(problem, jnp.float64, JParams(**kw)), 1e-10)
     mesh, links, _ = problem
-    slab = DiracOperator(
-        SlabWilsonDirac.build(cplx.from_numpy(links, torch.float64, "cpu"), mesh), K
-    )
-    with pytest.raises(NotImplementedError):
-        gcr_solve(slab, b, GCRParams(max_iter=5, restart=5, fused=True))
+    slab = DiracOperator(SlabWilsonDirac.build(
+        cplx.from_numpy(wilson.antiperiodic_t(links), torch.float64, "cpu"), mesh), K)
+    kw = GENERIC["restart"]
+    got = gcr_solve(slab, b, GCRParams(fused=True, **kw))
+    _compare(got, _jax_solve(problem, jnp.float64, JParams(**kw)), 1e-10)
 
 
 def test_zero_rhs_and_solver_object(problem):

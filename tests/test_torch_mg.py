@@ -19,7 +19,10 @@ compiled once per module.
   the z-step, ap_update and basis_flush through their plain versions)
   against the JAX package's host-loop generic GCR (``gcr_solve_eager``)
   with the same preconditioner: same iteration count, histories to rtol
-  1e-8, x to 1e-8 of scale; the port's generic form agrees the same way.
+  1e-8, x to 1e-8 of scale. The port's loop form under ``unroll="auto"``
+  (update_xr, the z-step, dir_update), with ``unroll="loop"`` on an
+  operator without the z-step (update_xr, beta_dots, dir_update with r),
+  its fused eager form and its generic form agree the same way.
 """
 
 import dataclasses
@@ -50,6 +53,7 @@ from mgpgcr_tpu_torch import (
     gcr_solve,
     mg_from_numpy,
 )
+from mgpgcr_tpu_torch import gcr_solve_eager as gcr_solve_eager_t
 from mgpgcr_tpu_torch.ops import wilson
 from mgpgcr_tpu_torch.solvers.mg import _check_transfer_backend, setup_mg_from
 from mgpgcr_tpu_torch.solvers.power import inverse_power_vectors
@@ -166,27 +170,46 @@ def _history(res):
     return np.asarray(res.res_history)
 
 
-def test_mg_gcr_matches_jax(hier, carried):
-    b = cplx.from_numpy(hier["rhs"], torch.float64, "cpu")
-    want = gcr_solve_eager(hier["ja"], _jcf(hier["rhs"]), JGCRParams(**OUTER),
+@pytest.fixture(scope="module")
+def mg_want(hier):
+    """The JAX package's MG-GCR, computed once for the whole-path tests."""
+    return gcr_solve_eager(hier["ja"], _jcf(hier["rhs"]), JGCRParams(**OUTER),
                            precond=hier["jmgp"].apply)
-    fused = gcr_solve(hier["a"], b, GCRParams(fused=True, unroll="cycles", **OUTER),
-                      precond=carried.apply)
-    generic = gcr_solve(hier["a"], b, GCRParams(**OUTER), precond=carried.apply)
-    xw = jcplx.to_numpy(want.x)
-    assert bool(want.converged) and int(want.n_iters) > 1
-    for got in (fused, generic):
-        assert got.converged and got.n_iters == int(want.n_iters)
-        np.testing.assert_allclose(_history(got), _history(want), rtol=1e-8, atol=1e-13)
-        _close(cplx.to_numpy(got.x), xw, 1e-8)
 
 
-def test_fused_preconditioned_needs_cycles(hier, carried):
-    """``unroll="auto"`` with a preconditioner asks for the loop form, whose
-    kernels are not ported yet."""
+def _check_against(got, want):
+    assert got.converged and got.n_iters == int(want.n_iters)
+    np.testing.assert_allclose(_history(got), _history(want), rtol=1e-8, atol=1e-13)
+    _close(cplx.to_numpy(got.x), jcplx.to_numpy(want.x), 1e-8)
+
+
+def test_mg_gcr_matches_jax(hier, carried, mg_want):
     b = cplx.from_numpy(hier["rhs"], torch.float64, "cpu")
-    with pytest.raises(NotImplementedError):
-        gcr_solve(hier["a"], b, GCRParams(fused=True, **OUTER), precond=carried.apply)
+    solves = {
+        "cycles": gcr_solve(hier["a"], b, GCRParams(fused=True, unroll="cycles", **OUTER),
+                            precond=carried.apply),
+        # "auto" with a preconditioner: the loop form with the z-step
+        "auto": gcr_solve(hier["a"], b, GCRParams(fused=True, **OUTER), precond=carried.apply),
+        "eager": gcr_solve_eager_t(hier["a"], b, GCRParams(fused=True, **OUTER),
+                                   precond=carried.apply),
+        "generic": gcr_solve(hier["a"], b, GCRParams(**OUTER), precond=carried.apply),
+        "eager_generic": gcr_solve_eager_t(hier["a"], b, GCRParams(**OUTER),
+                                           precond=carried.apply),
+    }
+    assert bool(mg_want.converged) and int(mg_want.n_iters) > 1
+    for got in solves.values():
+        _check_against(got, mg_want)
+
+
+def test_fused_preconditioned_needs_cycles(hier, carried, mg_want):
+    """The loop form once refused here now runs a preconditioned fused
+    solve without the cycles form: ``unroll="loop"`` on the operator passed
+    as a function (no z-step), so each iteration is update_xr, M r, A z,
+    beta_dots and dir_update dotted against r; it matches JAX."""
+    b = cplx.from_numpy(hier["rhs"], torch.float64, "cpu")
+    got = gcr_solve(hier["a"].apply, b, GCRParams(fused=True, unroll="loop", **OUTER),
+                    precond=carried.apply)
+    _check_against(got, mg_want)
 
 
 def test_transfer_backend_other_than_auto_raises_on_cuda():

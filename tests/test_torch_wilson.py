@@ -162,7 +162,8 @@ def test_field_converters_round_trip():
 def test_port_imports_no_jax():
     code = (
         "import sys, mgpgcr_tpu_torch, mgpgcr_tpu_torch.kernels, "
-        "mgpgcr_tpu_torch.kernels.transfer, mgpgcr_tpu_torch.solvers.mg, "
+        "mgpgcr_tpu_torch.kernels.transfer, mgpgcr_tpu_torch.kernels.gcr_kernels, "
+        "mgpgcr_tpu_torch.solvers.gcr, mgpgcr_tpu_torch.solvers.mg, "
         "mgpgcr_tpu_torch.solvers.power, mgpgcr_tpu_torch.ops.dense; "
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m == 'mgpgcr_tpu' or m.startswith('mgpgcr_tpu.')]; "
