@@ -10,17 +10,23 @@ V-cycle (block 8^4, 6 null vectors, GCR(4) smoother on bf16 links, dense
 coarse operator), each in the fused restart-cycle form (the hand-written
 kernels) and the generic form; then the fused loop form on direction
 stacks (restart with unroll="loop", truncation, residual refresh, MG under
-unroll="auto") and the fused eager MG loop.
+unroll="auto") and the fused eager MG loop; then the reference's MG config
+of record (block 4^4, 10 null vectors, smoother off, block-stencil coarse
+operator of 81,920 unknowns; and the block-ELL one from the same blocks),
+a three-level MG (the block-8 cell with block-stencil coarse operators on
+4^4 and 2^4 blocks), and the plain fused solve on mu-major 3-row links
+(``build(..., tb=2, zb=8)``).
 
 Phases, each printed as one JSON line with its wall seconds:
   device    the card's name and power limit (nvidia-smi);
   build     the one nvcc call that builds csrc/*.cu;
   oracle    the Dslash kernel against the numpy oracle on a 4^4 lattice;
-  parity    every kernel against its plain PyTorch version at 32^4;
+  parity    every kernel against its plain PyTorch version at 32^4 (and
+            B12 at the coarse grids of the MG paths);
   timing    CUDA-event times of each kernel, its plain version, its bound,
             and one PyTorch call computing the same function where there is
             one (an einsum or a matrix product for K3, K4, B2, B3, B6, B7,
-            B10 and B11, each checked against the plain version);
+            B10, B11 and B12, each checked against the plain version);
   solve     the plain path: both solve forms (two runs each, in turns),
             iteration counts, ms per iteration, the independent f64
             residual, launch counts;
@@ -30,7 +36,15 @@ Phases, each printed as one JSON line with its wall seconds:
             residual, launch counts;
   loop_solve  the loop-form and eager paths: iterations (and where the
             history first reaches the tolerance), ms per iteration, the
-            independent f64 residual, launch counts.
+            independent f64 residual, launch counts;
+  mg_record_setup, mg_record_solve  the config of record: setup seconds
+            by phase, peak GiB, the coarse dimension, Galerkin P^H A P = C
+            through the block-stencil kernel, the block-ELL apply against
+            it, outer iterations and ms with each coarse format, the
+            independent f64 residual, launches;
+  mg_three_level  the three-level setup and solve, launches by phase;
+  mu_major  the plain fused solve on mu-major links: iterations, ms, the
+            independent f64 residual, launches (B13, and no one-pass step).
 Then the kernel table, the card line and the result line. Any failed
 check raises, and the script exits non-zero. Run: ``python3 chip_smoke.py``
 (``--profile`` adds a torch.profiler breakdown of the fused solves).
@@ -38,6 +52,7 @@ check raises, and the script exits non-zero. Run: ``python3 chip_smoke.py``
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -79,7 +94,14 @@ REPLACES = {
     "beta_dots": ("beta_dots", "mgpgcr_tpu/ops/pallas/gcr_kernels.py:171", "csrc/gcr_loop.cu"),
     "dir_update": ("dir_update", "mgpgcr_tpu/ops/pallas/gcr_kernels.py:225",
                    "csrc/gcr_loop.cu"),
+    "stencil_spmv": ("stencil_spmv", "mgpgcr_tpu/ops/pallas/spmv.py:66", "csrc/spmv.cu"),
+    "dslash_mu": ("dslash_mu", "mgpgcr_tpu/ops/pallas/dslash.py:83", "csrc/dslash.cu"),
 }
+REC_BLOCK, REC_NULLVECS = 4, 10  # the config of record (MGParams() defaults)
+# B12's shapes on the MG paths: (grid of blocks, ne); the config of
+# record's coarse level, and levels 2 and 3 of the three-level cell
+SPMV_SHAPES = {"record": ((8, 8, 8, 8), 20), "level2": ((4, 4, 4, 4), 12),
+               "level3": ((2, 2, 2, 2), 12)}
 BIG_LIM = 20  # beta_dots past one chunk of 8 rows, lim past the cycles form's 16
 TURN_ROUNDS = 5  # rounds of cycles, loop, loop, cycles in the loop/cycles comparison
 
@@ -516,6 +538,123 @@ def loop_kernel_timing(inp, n_sites: int, S: int, table: dict, variants: dict) -
     return extra
 
 
+def new_kernel_parity(mesh, canon, variants, psi, kt, gen, note) -> dict:
+    """B12 at the MG paths' three shapes (f32 and bf16 blocks; the duplicate
+    slots of 2-extent grids hold zero blocks, as the Galerkin assembly
+    leaves them), B13 against its plain version and against K1 on 3-row
+    t-major links with the in-kernel sign, and B10/B11 at the config of
+    record's block 4, ne 20. Returns the inputs the timing phase reuses."""
+    import math
+
+    import torch
+
+    from mgpgcr_tpu_torch import CudaWilsonDirac, cplx
+    from mgpgcr_tpu_torch.kernels.dslash import dslash_mu, dslash_mu_plain
+    from mgpgcr_tpu_torch.kernels.spmv import stencil_spmv, stencil_spmv_plain
+    from mgpgcr_tpu_torch.kernels.transfer import prolong, prolong_plain, restrict, restrict_plain
+
+    dev = psi.device
+    spmv = {}
+    for name, (dims, ne) in SPMV_SHAPES.items():
+        nb = math.prod(dims)
+        blocks = cplx.random(gen, (nb, 2 * len(dims) + 1, ne, ne), torch.float32, dev)
+        for d, ext in enumerate(dims):
+            if ext <= 2:
+                blocks[:, 2 + 2 * d] = cplx.zeros_like(blocks[:, 2 + 2 * d])
+        x = cplx.random(gen, (nb * ne,), torch.float32, dev)
+        spmv[name] = (dims, blocks, x)
+        for bname, bl in (("f32", blocks), ("bf16", blocks.astype(torch.bfloat16))):
+            note("stencil_spmv", f"{name}/{bname}",
+                 rel_err(stencil_spmv(bl, x, dims), stencil_spmv_plain(bl, x, dims)), FIELD_TOL)
+
+    mu = CudaWilsonDirac.build(canon, mesh, antiperiodic_t=True, device=dev, tb=2, zb=8)
+    check(not mu.t_major, "build(tb=2, zb=8) stores mu-major links")
+    k1 = CudaWilsonDirac(variants[(3, "f32")], mesh, anti_t=True)
+    for kk in (None, kt):
+        got = dslash_mu(mu.links, psi, mesh, kk)
+        note("dslash_mu", f"plain/k={kk is not None}",
+             rel_err(got, dslash_mu_plain(mu.links, psi, mesh, kk)), FIELD_TOL)
+        ref = k1.apply(psi) if kk is None else k1.apply_dirac(psi, kk)
+        note("dslash_mu", f"K1-3row-anti_t/k={kk is not None}", rel_err(got, ref), FIELD_TOL)
+
+    bm = mesh.blocking(REC_BLOCK)
+    ne = 2 * REC_NULLVECS
+    q = cplx.random(gen, (ne,) + psi.shape, torch.float32, dev)
+    xc = cplx.random(gen, (bm.n_blocks * ne,), torch.float32, dev)
+    for qname, qf in (("f32", q), ("bf16", q.astype(torch.bfloat16))):
+        note("restrict", f"block4/ne20/{qname}",
+             rel_err(restrict(qf, bm, psi), restrict_plain(qf, bm, psi)), FIELD_TOL)
+        note("prolong", f"block4/ne20/{qname}/base",
+             rel_err(prolong(qf, bm, xc, psi, 0.7), prolong_plain(qf, bm, xc, psi, 0.7)),
+             FIELD_TOL)
+    return dict(spmv=spmv, mu=mu, q=q, xc=xc, bm=bm)
+
+
+def new_kernel_timing(mesh, inp, psi, kt, table: dict) -> dict:
+    """CUDA-event times of B12 (at the config of record's coarse level, and
+    its other shapes and bf16 blocks on the side) and B13, their plain
+    versions and bounds; B12's library yardstick is the block-ELL einsum
+    on the same blocks, over x gathered outside the timed region. B10/B11
+    at block 4, ne 20 on the side."""
+    import math
+
+    import torch
+
+    from mgpgcr_tpu_torch.kernels.dslash import dslash_mu, dslash_mu_plain
+    from mgpgcr_tpu_torch.kernels.spmv import (
+        stencil_neighbor_table, stencil_spmv, stencil_spmv_plain,
+    )
+    from mgpgcr_tpu_torch.kernels.transfer import prolong, restrict
+
+    extra = {}
+
+    def spmv_cost(dims, ne, bsize):
+        nb = math.prod(dims)
+        nbytes = nb * (2 * len(dims) + 1) * ne * ne * 2 * bsize + 2 * nb * ne * 8
+        return nbytes, nb * (2 * len(dims) + 1) * ne * ne * 8
+
+    for name, (dims, blocks, x) in inp["spmv"].items():
+        ne = blocks.shape[-1]
+        for bname, bl in (("f32", blocks), ("bf16", blocks.astype(torch.bfloat16))):
+            ms = cuda_ms(lambda: stencil_spmv(bl, x, dims), reps=50)
+            nbytes, flops = spmv_cost(dims, ne, bl.re.element_size())
+            if name == "record" and bname == "f32":
+                pms = cuda_ms(lambda: stencil_spmv_plain(bl, x, dims), reps=5, warmup=1)
+                nb = math.prod(dims)
+                tab = torch.as_tensor(stencil_neighbor_table(dims), dtype=torch.long,
+                                      device=x.device)
+                bc = torch.complex(blocks.re, blocks.im)
+                xg = torch.complex(x.re, x.im).reshape(nb, ne)[tab]
+                lms = cuda_ms(lambda: torch.einsum("rkij,rkj->ri", bc, xg), reps=50)
+                lib = torch.einsum("rkij,rkj->ri", bc, xg).reshape(-1)
+                want = stencil_spmv_plain(blocks, x, dims)
+                check(rel_err(lib, torch.complex(want.re, want.im))[0] <= FIELD_TOL,
+                      "stencil_spmv's block-ELL einsum yardstick")
+                del bc, xg, lib
+                table["stencil_spmv"] = (ms, pms, *bound(nbytes, flops), lms, nbytes)
+            else:
+                extra[f"stencil_spmv_{name}_{bname}_ms"] = ms
+                extra[f"stencil_spmv_{name}_{bname}_bound_ms"] = bound(nbytes, flops)[0]
+
+    n_sites = mesh.n_sites
+    links = inp["mu"].links
+    ms = cuda_ms(lambda: dslash_mu(links, psi, mesh, kt))
+    pms = cuda_ms(lambda: dslash_mu_plain(links, psi, mesh, kt), reps=5, warmup=1)
+    nbytes = n_sites * (LINK_B[(3, "f32")] + 2 * FIELD_B)
+    table["dslash_mu"] = (ms, pms, *bound(nbytes, n_sites * (DSLASH_FLOPS_PER_SITE + K_FLOPS)),
+                          None, nbytes)
+
+    q, xc, bm = inp["q"], inp["xc"], inp["bm"]
+    ne = q.shape[0]
+    qbytes = ne * 12 * n_sites * 8
+    nc = bm.n_blocks * ne
+    extra["restrict_block4_ne20_ms"] = cuda_ms(lambda: restrict(q, bm, psi))
+    extra["restrict_block4_ne20_bound_ms"] = bound(qbytes + n_sites * FIELD_B + nc * 8, 0)[0]
+    extra["prolong_block4_ne20_ms"] = cuda_ms(lambda: prolong(q, bm, xc, psi, 0.7))
+    extra["prolong_block4_ne20_bound_ms"] = bound(qbytes + 2 * n_sites * FIELD_B + nc * 8, 0)[0]
+    return extra
+
+
 def mg_path(canon, mesh, dev, card: str, independent_relres, profile: bool) -> dict:
     """MG setup and the MG-preconditioned restart-5 solve of the second
     slice, fused and generic, with the V-cycle breakdown. Returns the fused
@@ -637,7 +776,7 @@ def loop_path(a, b, mgp, card: str, independent_relres, cycles_iters: dict,
     on the plain path's operator and right-hand side. Each form runs once
     to warm up and twice timed; then the loop form and the cycles form run
     in turns, plain and MG. Returns the launch counts of each form's first
-    timed run, summed."""
+    timed run, summed, and the MG "auto" form's outer iterations."""
     import torch
 
     from mgpgcr_tpu_torch import GCRParams, gcr_solve, gcr_solve_eager, kernels
@@ -723,7 +862,211 @@ def loop_path(a, b, mgp, card: str, independent_relres, cycles_iters: dict,
         profile_solve(a, b, GCRParams(restart=RESTART, fused=True, unroll="loop", **plain), card,
                       label="loop_profile")
         profile_solve(a, b, GCRParams(**mg), card, mgp.apply, "mg_loop_profile")
-    return total
+    return total, out["mg_auto"]["iters"]
+
+
+def _timed_solve(run, b, independent_relres, what: str) -> dict:
+    """One solve with the launch counts set to 0 just before and read just
+    after; checks convergence, a finite solution of b's shape and the
+    independent f64 residual."""
+    import torch
+
+    from mgpgcr_tpu_torch import kernels
+
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    s0 = time.perf_counter()
+    res = run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - s0
+    counts = kernels.launch_counts()
+    check(res.converged, f"{what} solve converged")
+    check(res.x.shape == b.shape and bool(torch.isfinite(res.x.re).all())
+          and bool(torch.isfinite(res.x.im).all()), f"{what} solution finite")
+    rel = independent_relres(res.x)
+    check(rel <= 2e-6, f"{what} independent residual {rel} <= 2e-6")
+    return {"iters": res.n_iters, "relres": res.final_relres, "independent_relres_f64": rel,
+            "seconds": wall, "ms_per_iter": 1e3 * wall / max(res.n_iters, 1),
+            "launches": counts}
+
+
+def record_path(canon, mesh, dev, card: str, independent_relres, profile: bool) -> dict:
+    """The reference's MG config of record (MGParams() defaults: block 4^4,
+    10 null vectors, coarse GCR restart 10 / 50 iterations / tol 1e-2) with
+    the smoother off and the block-stencil coarse operator; the block-ELL
+    operator from the same blocks beside it. Returns the launch counts of
+    the setup and the first stencil solve, summed."""
+    import torch
+
+    from mgpgcr_tpu_torch import (
+        BlockSparseOperator, CudaWilsonDirac, DiracOperator, GCRParams, MGParams,
+        StencilBlockOperator, cplx, gcr_solve, kernels, setup_mg,
+    )
+
+    t1 = time.perf_counter()
+    op = CudaWilsonDirac.build(canon, mesh, compress=True, antiperiodic_t=True, device=dev)
+    a = DiracOperator(op, K)
+    params = MGParams(smoother_gcr=None, coarse_format="stencil")
+    check((params.block, params.n_nullvecs) == (REC_BLOCK, REC_NULLVECS), "record defaults")
+    timings = {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    s0 = time.perf_counter()
+    mgp = setup_mg(torch.Generator(device=dev).manual_seed(3), a, mesh, params, timings=timings)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - s0
+    setup_counts = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    nc = mgp.coarse.shape[0]
+    check(isinstance(mgp.coarse, StencilBlockOperator) and nc == 81920,
+          f"block-stencil coarse operator of 81920 unknowns: {nc}")
+    check(setup_counts["restrict"] > 0, "the Galerkin probes ran the restrict kernel")
+    qb = mgp.block_map.to_blocked_tpu(mgp.q_field)
+    qc = torch.complex(qb.re, qb.im)
+    del qb
+    gram = torch.einsum("ebk,fbk->bef", qc.conj(), qc)
+    del qc
+    orth = float((gram - torch.eye(gram.shape[-1], dtype=gram.dtype, device=dev)).abs().amax())
+    check(orth <= 1e-4, f"P^H P = I per block: {orth}")
+    gen = torch.Generator(device=dev).manual_seed(13)
+    blocks = mgp.coarse.blocks
+    bsr = BlockSparseOperator(blocks, mgp.block_map.neighbor_table())
+    galerkin, ell = [], []
+    kernels.reset_launches()
+    for _ in range(3):
+        vc = cplx.random(gen, (nc,), torch.float32, dev)
+        cv = mgp.coarse.apply(vc)
+        galerkin.append(rel_err(mgp.restrict(a.apply(mgp.prolong(vc))), cv)[0])
+        ell.append(rel_err(bsr.apply(vc), cv)[0])
+    check(kernels.launch_counts()["stencil_spmv"] == 3, "C v went through the stencil kernel")
+    check(max(galerkin) <= GALERKIN_TOL, f"Galerkin P^H A P = C: {galerkin}")
+    check(max(ell) <= FIELD_TOL, f"block-ELL apply against the stencil kernel: {ell}")
+    emit("mg_record_setup", t1, card=card, lattice=list(mesh.dims), block=REC_BLOCK,
+         n_nullvecs=REC_NULLVECS, ne=2 * REC_NULLVECS, n_blocks=mgp.block_map.n_blocks,
+         coarse_dim=nc, coarse_format="stencil", smoother=None, setup_seconds=setup_s,
+         phase_seconds=timings, peak_gib=peak, launches=setup_counts,
+         orthonormality_err=orth, galerkin_rel_err=galerkin, galerkin_tol=GALERKIN_TOL,
+         bsr_vs_stencil_rel_err=ell,
+         dense="not built: 81920^2 complex64 is 53.7 GB, and its assembly needs two more "
+               "f32 planes of that size")
+
+    t1 = time.perf_counter()
+    b = cplx.random(torch.Generator(device=dev).manual_seed(7), op.field_shape, torch.float32,
+                    dev)
+    outer = GCRParams(tol=1e-6, max_iter=200, restart=RESTART, fused=True)
+    ell_mgp = dataclasses.replace(mgp, coarse=bsr)
+    runs = {"stencil": [], "bsr": []}
+    for fmt in ("stencil", "bsr", "stencil"):
+        pre = mgp if fmt == "stencil" else ell_mgp
+        runs[fmt].append(_timed_solve(lambda: gcr_solve(a, b, outer, precond=pre.apply), b,
+                                      independent_relres, f"MG record {fmt}"))
+    st, bs = runs["stencil"], runs["bsr"]
+    check(st[0]["iters"] == st[1]["iters"] and st[0]["launches"] == st[1]["launches"],
+          "MG record stencil runs repeat")
+    check(abs(st[0]["iters"] - bs[0]["iters"]) <= 1, "block-ELL outer iterations within 1")
+    counts = st[0]["launches"]
+    check(all(counts[k] > 0 for k in ("stencil_spmv", "restrict", "prolong", "gcr_z_step",
+                                      "update_xr", "dir_update")),
+          f"the config of record launched B12, B10, B11, B9, B6 and B7: {counts}")
+    check(bs[0]["launches"]["stencil_spmv"] == 0, "the block-ELL solve ran no B12")
+    rc = mgp.restrict(b)
+    coarse = gcr_solve(mgp.coarse, rc, params.coarse_gcr)
+    coarse_ms = host_ms(lambda: gcr_solve(mgp.coarse, rc, params.coarse_gcr))
+    bsr_coarse_ms = host_ms(lambda: gcr_solve(bsr, rc, params.coarse_gcr))
+    emit("mg_record_solve", t1, card=card, k=K, tol=1e-6, restart=RESTART, unroll="auto",
+         stencil=st, bsr=bs, coarse_iters_on_b=coarse.n_iters,
+         coarse_solve_ms={"stencil": coarse_ms, "bsr": bsr_coarse_ms},
+         vcycle_ms=host_ms(lambda: mgp.apply(b)))
+    if profile:
+        profile_solve(a, b, outer, card, mgp.apply, "mg_record_profile")
+    return {k: setup_counts[k] + counts[k] for k in counts}
+
+
+def three_level_path(canon, mesh, dev, card: str, independent_relres, two_level_iters: dict,
+                     profile: bool) -> dict:
+    """The MG cell (block 8, 6 null vectors, GCR(4) smoother on bf16 links)
+    with n_level=3, coarse_block=2 and block-stencil coarse operators:
+    3072 unknowns on (4,4,4,4) blocks at level 2, 192 on (2,2,2,2) at level
+    3. Returns the launch counts of the setup and the solve, summed."""
+    import torch
+
+    from mgpgcr_tpu_torch import (
+        CudaWilsonDirac, DiracOperator, GCRParams, MGParams, cplx, gcr_solve, kernels,
+        setup_mg, with_link_dtype,
+    )
+
+    t1 = time.perf_counter()
+    op = CudaWilsonDirac.build(canon, mesh, compress=True, antiperiodic_t=True, device=dev)
+    a = DiracOperator(op, K)
+    a_smooth = DiracOperator(with_link_dtype(op, torch.bfloat16), K)
+    params = MGParams(block=MG_BLOCK, n_nullvecs=MG_NULLVECS, n_level=3, coarse_block=2,
+                      coarse_format="stencil")
+    timings = {}
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    s0 = time.perf_counter()
+    mgp = setup_mg(torch.Generator(device=dev).manual_seed(3), a, mesh, params,
+                   smoother_operator=a_smooth, timings=timings)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - s0
+    setup_counts = kernels.launch_counts()
+    lv2 = mgp.coarse_precond
+    check(lv2 is not None and lv2.coarse_precond is None, "three levels were built")
+    dims = [mgp.coarse.dims, lv2.coarse.dims]
+    check(dims == [(4, 4, 4, 4), (2, 2, 2, 2)] and lv2.coarse.shape[0] == 192
+          and mgp.coarse.shape[0] == 3072, f"level grids {dims}")
+    check(setup_counts["stencil_spmv"] > 0, "the level-2 setup ran the stencil kernel")
+    b = cplx.random(torch.Generator(device=dev).manual_seed(7), op.field_shape, torch.float32,
+                    dev)
+    outer = GCRParams(tol=1e-6, max_iter=200, restart=RESTART, fused=True)
+    gcr_solve(a, b, outer, precond=mgp.apply)  # warm-up
+    runs = [_timed_solve(lambda: gcr_solve(a, b, outer, precond=mgp.apply), b, independent_relres,
+                         "three-level MG") for _ in range(2)]
+    check(runs[0]["iters"] == runs[1]["iters"], "three-level runs repeat")
+    counts = runs[0]["launches"]
+    check(counts["stencil_spmv"] > 0 and counts["gcr_z_step"] > 0,
+          f"the three-level solve launched B12 and B9: {counts}")
+    emit("mg_three_level", t1, card=card, k=K, tol=1e-6, restart=RESTART, unroll="auto",
+         levels=[{"unknowns": mgp.coarse.shape[0], "grid": list(dims[0]), "ne": mgp.coarse.ne},
+                 {"unknowns": lv2.coarse.shape[0], "grid": list(dims[1]), "ne": lv2.coarse.ne}],
+         setup_seconds=setup_s, phase_seconds=timings, setup_launches=setup_counts, runs=runs,
+         two_level_outer_iters=two_level_iters)
+    if profile:
+        profile_solve(a, b, outer, card, mgp.apply, "mg_three_level_profile")
+    return {k: setup_counts[k] + counts[k] for k in counts}
+
+
+def mu_major_path(canon, mesh, dev, card: str, independent_relres, plain_iters: int) -> dict:
+    """The plain fused restart-5 solve on mu-major 3-row f32 links
+    (``build(..., tb=2, zb=8)``, the anti-periodic sign folded into the
+    links): B13 and the cycles form's algebra without a one-pass step.
+    Returns the first timed run's launch counts."""
+    import torch
+
+    from mgpgcr_tpu_torch import CudaWilsonDirac, DiracOperator, GCRParams, cplx, gcr_solve
+
+    t1 = time.perf_counter()
+    op = CudaWilsonDirac.build(canon, mesh, antiperiodic_t=True, device=dev, tb=2, zb=8)
+    check(not op.t_major, "mu-major links")
+    a = DiracOperator(op, K)
+    b = cplx.random(torch.Generator(device=dev).manual_seed(7), op.field_shape, torch.float32,
+                    dev)
+    params = GCRParams(tol=1e-6, max_iter=500, restart=RESTART, fused=True)
+    gcr_solve(a, b, params)  # warm-up
+    runs = [_timed_solve(lambda: gcr_solve(a, b, params), b, independent_relres, "mu-major")
+            for _ in range(2)]
+    counts = runs[0]["launches"]
+    check(runs[0]["iters"] == runs[1]["iters"] and counts == runs[1]["launches"],
+          "mu-major runs repeat")
+    check(abs(runs[0]["iters"] - plain_iters) <= 2,
+          f"mu-major iterations {runs[0]['iters']} within 2 of the t-major {plain_iters}")
+    check(counts["dslash_mu"] > 0 and counts["gcr_stream_step"] == 0
+          and counts["dslash_apply"] == 0,
+          f"B13 launched, and no K1 or one-pass step on mu-major links: {counts}")
+    emit("mu_major", t1, card=card, k=K, tol=1e-6, restart=RESTART, tb=2, zb=8,
+         t_major_iters=plain_iters, runs=runs)
+    return counts
 
 
 def main() -> int:
@@ -860,6 +1203,7 @@ def main() -> int:
         note("basis_flush", f"p0/nb={nb}", rel_err(got[1], ref[1]), FIELD_TOL)
     mg_inputs = mg_kernel_parity(mesh, variants, gen, note, S)
     loop_inputs = loop_kernel_parity(fshape, dev, gen, note, S)
+    new_inputs = new_kernel_parity(mesh, canon, variants, psi, kt, gen, note)
     torch.cuda.synchronize()
     emit("parity", t1, cases=len(worst), field_tol=FIELD_TOL, dot_tol=DOT_TOL,
          worst={k: max(v for kk, v in worst.items() if kk.startswith(k + ":")) for k in max_abs},
@@ -928,12 +1272,13 @@ def main() -> int:
     extra = mg_kernel_timing(mesh, variants, mg_inputs, S, table)
     kernel_variants = {}  # the r forms of K3 and B7
     extra.update(loop_kernel_timing(loop_inputs, n_sites, S, table, kernel_variants))
+    extra.update(new_kernel_timing(mesh, new_inputs, psi, kt, table))
     torch.cuda.synchronize()
     emit("timing", t1, card=card, dslash_variants_ms=variant_ms, **extra,
          kernels={k: {"ms": v[0], "plain_ms": v[1], "bound_ms": v[2], "bound_by": v[3],
                       "library_ms": v[4], "bytes": v[5]} for k, v in table.items()},
          variants=kernel_variants)
-    del aps, r, psi, variants, mg_inputs, loop_inputs, basis, basis_all
+    del aps, r, psi, variants, mg_inputs, loop_inputs, new_inputs, basis, basis_all
 
     # ---- solve: the plain path --------------------------------------------
     t1 = time.perf_counter()
@@ -996,13 +1341,24 @@ def main() -> int:
     mg = mg_path(canon, mesh, dev, card, independent_relres, profile)
 
     # ---- the loop-form and eager paths ---------------------------------------
-    loop_counts = loop_path(mg["a"], mg["b"], mg["mgp"], card, independent_relres,
-                            {"plain": solves["fused"]["iters"], "mg": mg["outer_iters"]}, profile)
+    loop_counts, loop_iters = loop_path(mg["a"], mg["b"], mg["mgp"], card, independent_relres,
+                                        {"plain": solves["fused"]["iters"],
+                                         "mg": mg["outer_iters"]}, profile)
+    mg_counts, mg_iters = mg["counts"], mg["outer_iters"]
+    del mg
+
+    # ---- the config of record, three levels, mu-major links -----------------
+    record_counts = record_path(canon, mesh, dev, card, independent_relres, profile)
+    three_counts = three_level_path(canon, mesh, dev, card, independent_relres,
+                                    {"cycles": mg_iters, "auto": loop_iters}, profile)
+    mu_counts = mu_major_path(canon, mesh, dev, card, independent_relres,
+                              solves["fused"]["iters"])
+    path_counts = (plain_counts, mg_counts, loop_counts, record_counts, three_counts, mu_counts)
 
     rows = []
     for kname, (short, replaces, source) in REPLACES.items():
         ms, pms, bms, by, lms, _ = table[kname]
-        launches = plain_counts[kname] + mg["counts"][kname] + loop_counts[kname]
+        launches = sum(c[kname] for c in path_counts)
         check(launches > 0, f"{kname} launched on the main paths")
         # beta_dots has no field output: its error is that of its dots
         err = max_abs_dot[kname] if kname == "beta_dots" else max_abs[kname]

@@ -6,7 +6,8 @@ hand-written CUDA kernels for Hopper (``csrc/``, built by one ``nvcc`` call
 at first use and bound with ``ctypes``), and flexible GCR runs either as
 the generic loop or through the kernels, in the restart-cycle form or the
 loop form on direction stacks (and as the host-driven ``gcr_solve_eager``),
-plain or with the two-level multigrid preconditioner (``setup_mg``). Entry
+plain or with the multigrid preconditioner (``setup_mg``: any number of
+levels, dense, block-ELL or block-stencil coarse operators). Entry
 points run on CUDA unless the caller passes ``device="cpu"``; CPU tensors
 take each kernel's plain PyTorch version. The JAX package ``mgpgcr_tpu``
 is the reference this package is held against.
@@ -14,6 +15,9 @@ is the reference this package is held against.
 
 from mgpgcr_tpu_torch import cplx, fields
 from mgpgcr_tpu_torch.mesh import BlockMap, LatticeMesh
+from mgpgcr_tpu_torch.ops.base import FunctionOperator
+from mgpgcr_tpu_torch.ops.blockstencil import StencilBlockOperator
+from mgpgcr_tpu_torch.ops.bsr import BlockSparseOperator
 from mgpgcr_tpu_torch.ops.dense import DenseOperator
 from mgpgcr_tpu_torch.ops.dirac import DiracOperator
 from mgpgcr_tpu_torch.ops.dslash import (
@@ -22,6 +26,7 @@ from mgpgcr_tpu_torch.ops.dslash import (
     field_to_numpy,
     links_from_numpy,
 )
+from mgpgcr_tpu_torch.ops.wilson import WilsonDiracOperator
 from mgpgcr_tpu_torch.ops.wilson_slab import (
     SlabWilsonDirac,
     field_from_slab,
@@ -30,7 +35,12 @@ from mgpgcr_tpu_torch.ops.wilson_slab import (
     with_link_dtype,
 )
 from mgpgcr_tpu_torch.solvers.gcr import GCRSolver, gcr_solve, gcr_solve_eager, gcr_solve_jit
-from mgpgcr_tpu_torch.solvers.mg import MGPreconditioner, mg_from_numpy, setup_mg
+from mgpgcr_tpu_torch.solvers.mg import (
+    MGPreconditioner,
+    mg_from_numpy,
+    setup_mg,
+    setup_mg_from,
+)
 from mgpgcr_tpu_torch.solvers.params import GCRParams, MGParams
 from mgpgcr_tpu_torch.solvers.power import inverse_power_vectors
 from mgpgcr_tpu_torch.solvers.result import SolveResult
@@ -41,6 +51,10 @@ __all__ = [
     "LatticeMesh",
     "BlockMap",
     "DenseOperator",
+    "BlockSparseOperator",
+    "StencilBlockOperator",
+    "FunctionOperator",
+    "WilsonDiracOperator",
     "DiracOperator",
     "CudaWilsonDirac",
     "SlabWilsonDirac",
@@ -60,6 +74,7 @@ __all__ = [
     "gcr_solve_jit",
     "MGPreconditioner",
     "setup_mg",
+    "setup_mg_from",
     "mg_from_numpy",
     "inverse_power_vectors",
 ]

@@ -5,7 +5,8 @@
 //
 // Layouts (all C-contiguous, site index fastest):
 //   field  (4, 3, T, Z, V), V = Y*X, re and im in separate arrays;
-//   links  (T, 4, R, 3, Z, V), R = 3, or 2 with row 2 = conj(row0 x row1).
+//   links  (T, 4, R, 3, Z, V), R = 3, or 2 with row 2 = conj(row0 x row1);
+//          or mu-major (4, 3, 3, T, Z, V) (MU_MAJOR, 3 rows).
 // One thread owns one lattice site; neighbour offsets come from index
 // arithmetic on (t, z, y, x), with y and x merged in the last axis.
 #pragma once
@@ -58,16 +59,26 @@ struct su3 {
   cf m[3][3];
 };
 
-// U_mu at the site with plane offset zv = z*V + v in t-plane t.
-template <int R, typename LT>
+struct Geom {
+  int T, Z, Y, X, V, ZV, N;
+  __device__ __forceinline__ Geom(int T_, int Z_, int Y_, int X_)
+      : T(T_), Z(Z_), Y(Y_), X(X_), V(Y_ * X_), ZV(Z_ * Y_ * X_), N(T_ * Z_ * Y_ * X_) {}
+};
+
+// U_mu at the site with plane offset zv = z*V + v in t-plane t: t-major
+// links, whose (a, b) entries lie ZV apart, or mu-major ones (MU_MAJOR),
+// whose entries lie a whole field (N) apart.
+template <int R, typename LT, bool MU_MAJOR>
 __device__ __forceinline__ void load_link(su3& u, const LT* ure, const LT* uim, int t, int mu,
-                                          int zv, int ZV) {
-  const int base = (t * 4 + mu) * R * 3 * ZV + zv;
+                                          int zv, const Geom& g) {
+  static_assert(!MU_MAJOR || R == 3, "mu-major links have 3 rows");
+  const int base = MU_MAJOR ? mu * 9 * g.N + t * g.ZV + zv : (t * 4 + mu) * R * 3 * g.ZV + zv;
+  const int step = MU_MAJOR ? g.N : g.ZV;
 #pragma unroll
   for (int a = 0; a < R; ++a)
 #pragma unroll
     for (int b = 0; b < 3; ++b) {
-      const int o = base + (a * 3 + b) * ZV;
+      const int o = base + (a * 3 + b) * step;
       u.m[a][b] = {ld<LT>(ure, o), ld<LT>(uim, o)};
     }
   if (R == 2) {
@@ -109,12 +120,6 @@ struct RPrimeLoad {
     cf a = {__ldg(are + o), __ldg(aim + o)};
     return csub(r, cmul(alpha, a));
   }
-};
-
-struct Geom {
-  int T, Z, Y, X, V, ZV, N;
-  __device__ __forceinline__ Geom(int T_, int Z_, int Y_, int X_)
-      : T(T_), Z(Z_), Y(Y_), X(X_), V(Y_ * X_), ZV(Z_ * Y_ * X_), N(T_ * Z_ * Y_ * X_) {}
 };
 
 // g = U h (FWD) or U^dag h (backward) for both half-spinor components
@@ -177,7 +182,7 @@ __device__ __forceinline__ void temporal_hop(const Load& L, int nb, const su3& u
 }
 
 // out = (D psi)(site n), psi read through L; site n = (t, z, v).
-template <int R, typename LT, class Load>
+template <int R, typename LT, bool MU_MAJOR = false, class Load>
 __device__ __forceinline__ void dslash_site(const Load& L, const LT* ure, const LT* uim,
                                             const Geom& g, int n, bool anti_t, cf (&out)[4][3]) {
   const int t = n / g.ZV;
@@ -195,9 +200,9 @@ __device__ __forceinline__ void dslash_site(const Load& L, const LT* ure, const 
   {
     const int tf = (t + 1 == g.T) ? 0 : t + 1;
     const int tb = (t == 0) ? g.T - 1 : t - 1;
-    load_link<R, LT>(u, ure, uim, t, 0, zv, g.ZV);
+    load_link<R, LT, MU_MAJOR>(u, ure, uim, t, 0, zv, g);
     temporal_hop<true>(L, tf * g.ZV + zv, u, (anti_t && t + 1 == g.T) ? -1.f : 1.f, out);
-    load_link<R, LT>(u, ure, uim, tb, 0, zv, g.ZV);
+    load_link<R, LT, MU_MAJOR>(u, ure, uim, tb, 0, zv, g);
     temporal_hop<false>(L, tb * g.ZV + zv, u, (anti_t && t == 0) ? -1.f : 1.f, out);
   }
   const int tplane = t * g.ZV;
@@ -205,9 +210,9 @@ __device__ __forceinline__ void dslash_site(const Load& L, const LT* ure, const 
   {
     const int zf = (z + 1 == g.Z) ? 0 : z + 1;
     const int zb = (z == 0) ? g.Z - 1 : z - 1;
-    load_link<R, LT>(u, ure, uim, t, 1, zv, g.ZV);
+    load_link<R, LT, MU_MAJOR>(u, ure, uim, t, 1, zv, g);
     spatial_hop<1, true>(L, tplane + zf * g.V + v, u, out);
-    load_link<R, LT>(u, ure, uim, t, 1, zb * g.V + v, g.ZV);
+    load_link<R, LT, MU_MAJOR>(u, ure, uim, t, 1, zb * g.V + v, g);
     spatial_hop<1, false>(L, tplane + zb * g.V + v, u, out);
   }
   const int zrow = tplane + z * g.V;
@@ -215,18 +220,18 @@ __device__ __forceinline__ void dslash_site(const Load& L, const LT* ure, const 
   {
     const int vf = (y + 1 == g.Y) ? x : v + g.X;
     const int vb = (y == 0) ? (g.Y - 1) * g.X + x : v - g.X;
-    load_link<R, LT>(u, ure, uim, t, 2, zv, g.ZV);
+    load_link<R, LT, MU_MAJOR>(u, ure, uim, t, 2, zv, g);
     spatial_hop<2, true>(L, zrow + vf, u, out);
-    load_link<R, LT>(u, ure, uim, t, 2, z * g.V + vb, g.ZV);
+    load_link<R, LT, MU_MAJOR>(u, ure, uim, t, 2, z * g.V + vb, g);
     spatial_hop<2, false>(L, zrow + vb, u, out);
   }
   // x
   {
     const int vf = (x + 1 == g.X) ? v - x : v + 1;
     const int vb = (x == 0) ? v + g.X - 1 : v - 1;
-    load_link<R, LT>(u, ure, uim, t, 3, zv, g.ZV);
+    load_link<R, LT, MU_MAJOR>(u, ure, uim, t, 3, zv, g);
     spatial_hop<3, true>(L, zrow + vf, u, out);
-    load_link<R, LT>(u, ure, uim, t, 3, z * g.V + vb, g.ZV);
+    load_link<R, LT, MU_MAJOR>(u, ure, uim, t, 3, z * g.V + vb, g);
     spatial_hop<3, false>(L, zrow + vb, u, out);
   }
 }

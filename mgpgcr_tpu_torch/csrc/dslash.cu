@@ -16,11 +16,20 @@
 // about the same time, so DRAM sees roughly one read of each. Two-row
 // links cut link bytes by a third (row 2 rebuilt in registers); bf16
 // storage halves them again.
+//
+// B13: the same operator on mu-major links (4, 3, 3, T, Z, V), 3 rows, f32
+// (or bf16) storage, the anti-periodic t sign folded into U_t(T-1) when
+// the links were stored. Replaces mgpgcr_tpu/ops/pallas/dslash.py::
+// _dslash_kernel (via dslash_apply with tb > 1 or zb < Z). That kernel cuts
+// the lattice into (t, z) blocks with one-plane halo windows in VMEM; here
+// it is K1's thread-per-site kernel with the mu-major link strides (each
+// (a, b) entry a whole field apart) and no in-kernel sign. Bound: bytes,
+// 288 B of links, 96 B of psi and 96 B out per site, 0.150 ms at 32^4.
 #include "common.cuh"
 
 namespace mg {
 
-template <int R, typename LT>
+template <int R, typename LT, bool MU_MAJOR>
 __global__ void __launch_bounds__(kThreads)
 dslash_kernel(const float* __restrict__ pre, const float* __restrict__ pim,
               const LT* __restrict__ ure, const LT* __restrict__ uim, float* __restrict__ ore,
@@ -31,7 +40,7 @@ dslash_kernel(const float* __restrict__ pre, const float* __restrict__ pim,
   if (n >= g.N) return;
   const FieldLoad L{pre, pim, g.N};
   cf out[4][3];
-  dslash_site<R, LT>(L, ure, uim, g, n, anti_t != 0, out);
+  dslash_site<R, LT, MU_MAJOR>(L, ure, uim, g, n, anti_t != 0, out);
   if (k != nullptr) {
     const cf kk = {k[0], k[1]};
 #pragma unroll
@@ -49,12 +58,12 @@ dslash_kernel(const float* __restrict__ pre, const float* __restrict__ pim,
     }
 }
 
-template <int R, typename LT>
+template <int R, typename LT, bool MU_MAJOR = false>
 static void launch_dslash(const float* pre, const float* pim, const void* ure, const void* uim,
                           float* ore, float* oim, const float* k, int T, int Z, int Y, int X,
                           int anti_t, cudaStream_t stream) {
   const int n = T * Z * Y * X;
-  dslash_kernel<R, LT><<<(n + kThreads - 1) / kThreads, kThreads, 0, stream>>>(
+  dslash_kernel<R, LT, MU_MAJOR><<<(n + kThreads - 1) / kThreads, kThreads, 0, stream>>>(
       pre, pim, static_cast<const LT*>(ure), static_cast<const LT*>(uim), ore, oim, k, T, Z, Y,
       X, anti_t);
 }
@@ -76,6 +85,19 @@ extern "C" int mg_dslash(const float* pre, const float* pim, const void* ure, co
     launch_dslash<2, __nv_bfloat16>(pre, pim, ure, uim, ore, oim, k, T, Z, Y, X, anti_t, s);
   else
     return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// B13: mu-major 3-row links, no in-kernel boundary sign
+extern "C" int mg_dslash_mu(const float* pre, const float* pim, const void* ure, const void* uim,
+                            float* ore, float* oim, const float* k, int T, int Z, int Y, int X,
+                            int bf16, void* stream) {
+  using namespace mg;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (bf16)
+    launch_dslash<3, __nv_bfloat16, true>(pre, pim, ure, uim, ore, oim, k, T, Z, Y, X, 0, s);
+  else
+    launch_dslash<3, float, true>(pre, pim, ure, uim, ore, oim, k, T, Z, Y, X, 0, s);
   return static_cast<int>(cudaGetLastError());
 }
 

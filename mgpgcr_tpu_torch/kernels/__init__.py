@@ -3,7 +3,7 @@ PyTorch versions. A wrapper launches its kernel for CUDA tensors and runs
 the plain version for CPU tensors; ``<wrapper>.launches`` counts kernel
 launches only."""
 
-from mgpgcr_tpu_torch.kernels.dslash import dslash_apply
+from mgpgcr_tpu_torch.kernels.dslash import dslash_apply, dslash_mu
 from mgpgcr_tpu_torch.kernels.gcr_dslash import gcr_stream_step, gcr_z_step
 from mgpgcr_tpu_torch.kernels.gcr_kernels import (
     ap_update,
@@ -13,11 +13,12 @@ from mgpgcr_tpu_torch.kernels.gcr_kernels import (
     update_r,
     update_xr,
 )
+from mgpgcr_tpu_torch.kernels.spmv import stencil_spmv
 from mgpgcr_tpu_torch.kernels.transfer import prolong, restrict
 
 WRAPPERS = (
     dslash_apply, gcr_stream_step, ap_update, basis_flush, update_r, gcr_z_step, restrict,
-    prolong, update_xr, beta_dots, dir_update,
+    prolong, update_xr, beta_dots, dir_update, stencil_spmv, dslash_mu,
 )
 
 

@@ -37,6 +37,9 @@ _SIGNATURES = {
     # psi re/im, links re/im, out re/im, k (nullable), T, Z, Y, X,
     # rows, bf16 links, anti_t, stream
     "mg_dslash": [_P] * 7 + [_I] * 7 + [_P],
+    # psi re/im, mu-major links re/im, out re/im, k (nullable), T, Z, Y, X,
+    # bf16 links, stream
+    "mg_dslash_mu": [_P] * 7 + [_I] * 5 + [_P],
     # r re/im, aps re/im, links re/im, alpha, k, r' re/im, az re/im,
     # partials, res, S, lim, T, Z, Y, X, rows, bf16, anti_t, stream
     "mg_gcr_stream_step": [_P] * 14 + [_I] * 9 + [_P],
@@ -64,6 +67,9 @@ _SIGNATURES = {
     # q re/im, c re/im, base re/im (nullable), out re/im, damping, ne, T, Z,
     # Y, X, bt, bz, by, bx, bf16 basis, stream
     "mg_prolong": [_P] * 8 + [_F] + [_I] * 10 + [_P],
+    # blocks re/im, x re/im, y re/im, nb, K, ne, nd, d0, d1, d2, d3, bf16
+    # blocks, stream
+    "mg_stencil_spmv": [_P] * 6 + [_I] * 9 + [_P],
 }
 
 _lock = threading.Lock()

@@ -1,8 +1,10 @@
-"""K1: the Dslash kernel's wrapper and its plain version.
+"""K1 and B13: the Dslash kernels' wrappers and their plain versions.
 
 ``dslash_apply`` replaces ``mgpgcr_tpu/ops/pallas/dslash.py::dslash_apply``
-(streaming branch, ``_dslash_stream_kernel``); the kernel is
-``csrc/dslash.cu``, which says what bounds it on an H100 and how.
+(streaming branch, ``_dslash_stream_kernel``) on t-major links;
+``dslash_mu`` replaces its blocked branch (``_dslash_kernel``, taken when
+tb > 1 or zb < Z) on mu-major links. Both kernels are ``csrc/dslash.cu``,
+which says what bounds them on an H100 and how.
 """
 
 from __future__ import annotations
@@ -85,3 +87,42 @@ def dslash_apply(links, psi, mesh, k=None, anti_t: bool = False) -> cplx.CF:
 
 
 dslash_apply.launches = 0
+
+
+def dslash_mu_plain(links, psi, mesh, k=None) -> cplx.CF:
+    """Plain PyTorch version of B13: D psi, or psi - k D psi with a complex
+    0-d ``k``, on mu-major (4, 3, 3, T, Z, Y*X) links in any storage dtype
+    (any boundary sign already folded into them), arithmetic in psi's
+    dtype."""
+    d = slab_dslash(links.astype(psi.dtype), psi, mesh.spacetime_dims[3])
+    return d if k is None else psi - d * k
+
+
+def dslash_mu(links, psi, mesh, k=None) -> cplx.CF:
+    """D psi (or psi - k D psi) on slab fields (4, 3, T, Z, Y*X) with
+    mu-major links (4, 3, 3, T, Z, Y*X), 3 rows, f32 or bf16 on the card.
+    CPU tensors take :func:`dslash_mu_plain`; CUDA tensors launch the
+    kernel or raise."""
+    tensors = [links.re, links.im, psi.re, psi.im] + ([k] if k is not None else [])
+    if not _lib.on_cuda(*tensors):
+        return dslash_mu_plain(links, psi, mesh, k)
+    t, z, y, xx = mesh.spacetime_dims
+    fshape = (4, 3, t, z, y * xx)
+    if psi.shape != fshape or links.shape != (4, 3, 3) + fshape[2:]:
+        raise ValueError(f"shapes links {links.shape}, psi {psi.shape} do not fit {mesh.dims}")
+    _lib.check_cuda(psi.re, psi.im)
+    _lib.check_cuda(links.re, links.im, dtypes=(torch.float32, torch.bfloat16))
+    kk = None if k is None else _lib.pairs(k.to(torch.complex64).reshape(()))
+    out = cplx.CF(torch.empty_like(psi.re), torch.empty_like(psi.im))
+    with torch.cuda.device(psi.device):
+        _lib.launch(
+            "mg_dslash_mu", psi.re.data_ptr(), psi.im.data_ptr(), links.re.data_ptr(),
+            links.im.data_ptr(), out.re.data_ptr(), out.im.data_ptr(),
+            None if kk is None else kk.data_ptr(), t, z, y, xx,
+            int(links.dtype == torch.bfloat16), _lib.stream(psi.re),
+        )
+    dslash_mu.launches += 1
+    return out
+
+
+dslash_mu.launches = 0

@@ -60,6 +60,21 @@ class LatticeMesh:
         lead = tuple(x.shape[: x.ndim - len(self.dims)])
         return x.reshape(lead + (self.size,))
 
+    def coords_to_index(self, coords) -> int:
+        """Row-major linearisation (Mesh::ind_loc, Mesh.h:146-154)."""
+        idx = 0
+        for c, d in zip(coords, self.dims):
+            idx = idx * d + int(c)
+        return idx
+
+    def index_to_coords(self, index: int) -> tuple[int, ...]:
+        """Inverse of :meth:`coords_to_index` (Mesh::alloc_loc_ind, Mesh.h:157-165)."""
+        coords = []
+        for d in reversed(self.dims):
+            coords.append(index % d)
+            index //= d
+        return tuple(reversed(coords))
+
     def blocking(self, block) -> "BlockMap":
         """4-D spacetime blocking (Mesh::blocking, Mesh.h:237-298); ``block``
         is one extent for every spacetime dim or a per-dim tuple."""
@@ -76,10 +91,12 @@ class LatticeMesh:
 
 @dataclass(frozen=True)
 class BlockMap:
-    """A 4-D domain decomposition as layout transforms: a slab field
-    ``(..., 4, 3, T, Z, Y*X)`` becomes a blocked field ``(..., n_blocks,
-    block_len)``, block_len = block volume x 12, with the within-block dof
-    order (t, z, y, x, spinor, colour) row-major."""
+    """A 4-D domain decomposition as layout transforms: a canonical flat
+    field ``(..., N)`` (``to_blocked``) or a slab field ``(..., 4, 3, T, Z,
+    Y*X)`` (``to_blocked_tpu``) becomes a blocked field ``(..., n_blocks,
+    block_len)``, block_len = block volume x site dof, with the within-block
+    dof order (spacetime, then internal) row-major; both layouts give the
+    same blocked form. A tensor or a ``cplx.CF``."""
 
     mesh: LatticeMesh
     block_dims: tuple[int, ...]
@@ -100,6 +117,41 @@ class BlockMap:
     def block_len(self) -> int:
         """Complex dof per block = block volume x (spinor x colour)."""
         return self.block_sites * self.mesh.site_dof
+
+    def _split_shape(self) -> tuple[int, ...]:
+        """(Bt, bt, Bz, bz, ..., *internal)."""
+        shape = ()
+        for d, b in zip(self.mesh.spacetime_dims, self.block_dims):
+            shape += (d // b, b)
+        return shape + self.mesh.internal_dims
+
+    def _block_axes_perm(self) -> tuple[int, ...]:
+        """Block coordinates first, then within-block ones, then internal."""
+        ns, n_int = self.mesh.n_spacetime, len(self.mesh.internal_dims)
+        return (tuple(range(0, 2 * ns, 2)) + tuple(range(1, 2 * ns, 2))
+                + tuple(range(2 * ns, 2 * ns + n_int)))
+
+    def to_blocked(self, x):
+        """Canonical flat (..., N) -> (..., n_blocks, block_len), blocks
+        row-major over the block coordinates (Mesh.h:168-233)."""
+        lead = tuple(x.shape[:-1])
+        nl = len(lead)
+        split = x.reshape(lead + self._split_shape())
+        moved = split.permute(tuple(range(nl)) + tuple(nl + a for a in self._block_axes_perm()))
+        return moved.reshape(lead + (self.n_blocks, self.block_len))
+
+    def from_blocked(self, xb):
+        """(..., n_blocks, block_len) -> canonical flat (..., N); inverse of
+        :meth:`to_blocked`."""
+        lead = tuple(xb.shape[:-2])
+        nl = len(lead)
+        mid = xb.reshape(lead + self.blocks_per_dim + self.block_dims + self.mesh.internal_dims)
+        fwd = self._block_axes_perm()
+        inv = [0] * len(fwd)
+        for i, p in enumerate(fwd):
+            inv[p] = i
+        moved = mid.permute(tuple(range(nl)) + tuple(nl + a for a in inv))
+        return moved.reshape(lead + (self.mesh.size,))
 
     def to_blocked_tpu(self, x):
         """(..., 4, 3, T, Z, Y*X) -> (..., n_blocks, block_len); a tensor or

@@ -1,6 +1,6 @@
-"""The Wilson--Dirac operator of the Dslash kernel: t-major link storage,
-two-row SU(3) compression, and the converters that carry numpy state into
-the port.
+"""The Wilson--Dirac operator of the Dslash kernels: t-major link storage,
+two-row SU(3) compression, mu-major storage, and the converters that carry
+numpy state into the port.
 
 Counterpart of the host side of ``mgpgcr_tpu/ops/pallas/dslash.py``
 (``links_to_tmajor`` .. ``_assert_su3_compressible`` and
@@ -9,7 +9,11 @@ beside the kernel's plain version, ``kernels/dslash.py::reconstruct_su3``). Link
 with R = 3 rows, or R = 2 when compressed (row 2 = conj(row0 x row1) is
 rebuilt in the kernel); storage is f32 or bf16, arithmetic f32. The
 anti-periodic temporal boundary sign is applied in the kernel, so stored
-links stay pristine SU(3) and compression composes with it.
+links stay pristine SU(3) and compression composes with it. Asked for
+``tb > 1`` or ``zb < Z`` (the JAX package's blocked kernel), ``build``
+stores mu-major 3-row links ``(4, 3, 3, T, Z, Y*X)`` instead, with the
+boundary sign folded into U_t(T-1), and the operator runs the mu-major
+Dslash kernel (B13); tb and zb select that storage only.
 """
 
 from __future__ import annotations
@@ -20,7 +24,7 @@ import numpy as np
 import torch
 
 from mgpgcr_tpu_torch import cplx
-from mgpgcr_tpu_torch.kernels.dslash import dslash_apply, reconstruct_su3
+from mgpgcr_tpu_torch.kernels.dslash import dslash_apply, dslash_mu, reconstruct_su3
 from mgpgcr_tpu_torch.mesh import LatticeMesh
 from mgpgcr_tpu_torch.ops.base import LinearOperator
 from mgpgcr_tpu_torch.ops.wilson_slab import links_to_slab
@@ -116,13 +120,16 @@ def field_to_numpy(x: cplx.CF) -> np.ndarray:
 @dataclasses.dataclass(frozen=True)
 class CudaWilsonDirac(LinearOperator):
     """Hopping operator D on slab fields (4, 3, T, Z, Y*X) backed by the
-    hand-written Dslash kernel (counterpart of ``PallasWilsonDirac``,
-    single device). ``anti_t`` applies the anti-periodic temporal boundary
-    sign in the kernel. CPU tensors take the kernel's plain version."""
+    hand-written Dslash kernels (counterpart of ``PallasWilsonDirac``,
+    single device): K1 on t-major links, B13 on mu-major ones. ``anti_t``
+    applies the anti-periodic temporal boundary sign in K1. CPU tensors
+    take the kernels' plain versions."""
 
-    links: cplx.CF  # (T, 4, R, 3, Z, Y*X), R = 3 or 2
+    links: cplx.CF  # t-major (T, 4, R, 3, Z, Y*X), R = 3 or 2; or (4, 3, 3, T, Z, Y*X)
     mesh: LatticeMesh
     anti_t: bool = False
+    tb: int | None = None  # the JAX package's (t, z) blocks: select the
+    zb: int | None = None  # mu-major storage, no blocking on the card
 
     @staticmethod
     def build(
@@ -132,12 +139,35 @@ class CudaWilsonDirac(LinearOperator):
         antiperiodic_t: bool = False,
         link_dtype=torch.float32,
         device=None,
+        tb: int | None = None,
+        zb: int | None = None,
     ) -> "CudaWilsonDirac":
         """``antiperiodic_t=True`` expects pristine periodic links and
         applies the boundary sign in the kernel (do not also pre-flip them
-        with ``ops/wilson.py::antiperiodic_t``)."""
-        links = links_from_numpy(links_canonical, mesh, device, compress, link_dtype)
-        return CudaWilsonDirac(links, mesh, bool(antiperiodic_t))
+        with ``ops/wilson.py::antiperiodic_t``). With ``tb > 1`` or
+        ``zb < Z`` (``PallasWilsonDirac.build``'s blocked kernel) the links
+        are stored mu-major with 3 rows and the sign is folded into
+        U_t(T-1) instead; ``compress`` is refused there."""
+        t, z = mesh.spacetime_dims[:2]
+        if tb in (None, 1) and zb in (None, z):
+            links = links_from_numpy(links_canonical, mesh, device, compress, link_dtype)
+            return CudaWilsonDirac(links, mesh, bool(antiperiodic_t), tb, zb)
+        if t % (tb or 1) or z % (zb or z):
+            raise ValueError(f"blocks tb={tb}, zb={zb} do not divide T={t}, Z={z}")
+        if compress:
+            raise ValueError("link compression requires t-major links (tb in (None, 1), zb = Z)")
+        dev = cplx.resolve_device(device)
+        wide = torch.float64 if link_dtype == torch.float64 else torch.float32
+        links = links_to_slab(_canonical_cf(links_canonical, dev, wide), mesh)
+        if antiperiodic_t:
+            links.re[0, :, :, t - 1] *= -1
+            links.im[0, :, :, t - 1] *= -1
+        return CudaWilsonDirac(links.astype(link_dtype), mesh, False, tb, zb)
+
+    @property
+    def t_major(self) -> bool:
+        """True for t-major links (K1), False for mu-major ones (B13)."""
+        return self.links.shape[1] == 4
 
     @property
     def shape(self) -> tuple[int, int]:
@@ -159,9 +189,13 @@ class CudaWilsonDirac(LinearOperator):
         return torch.float64 if dt == torch.float64 else torch.float32
 
     def apply(self, psi: cplx.CF) -> cplx.CF:
+        if not self.t_major:
+            return dslash_mu(self.links, psi, self.mesh)
         return dslash_apply(self.links, psi, self.mesh, anti_t=self.anti_t)
 
     def apply_dirac(self, psi: cplx.CF, k) -> cplx.CF:
         """A psi = psi - k D psi in one kernel pass (Operator.h:570-574)."""
         k = cplx.scalar(k, psi)
+        if not self.t_major:
+            return dslash_mu(self.links, psi, self.mesh, k=k)
         return dslash_apply(self.links, psi, self.mesh, k=k, anti_t=self.anti_t)

@@ -11,16 +11,22 @@ in the Dirac basis (the one implied by the reference's gamma5 spinor swap
   gamma_t = diag(1, 1, -1, -1),  gamma_i = [[0, -i sigma_i], [i sigma_i, 0]],
   gamma_5 = [[0, I], [I, 0]],
 with sigma3 -> z, sigma2 -> y, sigma1 -> x for the dim order (t, z, y, x).
-Links are canonical ``(4, T, Z, Y, X, 3, 3)`` complex arrays on the host;
+Links are canonical ``(4, T, Z, Y, X, 3, 3)`` complex arrays;
+``WilsonDiracOperator`` applies D to canonical (flat or lattice-shaped)
+fields in plain PyTorch, as the JAX package's form is XLA; and
 ``dirac_apply_np`` is the port's own numpy oracle of A = I - kD.
 """
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
+import torch
 
 from mgpgcr_tpu_torch import cplx
 from mgpgcr_tpu_torch.mesh import LatticeMesh
+from mgpgcr_tpu_torch.ops.base import LinearOperator
 
 _S1 = np.array([[0, 1], [1, 0]], dtype=np.complex128)
 _S2 = np.array([[0, -1j], [1j, 0]], dtype=np.complex128)
@@ -64,6 +70,30 @@ def random_links_np(seed: int, mesh: LatticeMesh) -> np.ndarray:
     return q / det[..., None, None] ** (1.0 / 3.0)
 
 
+def random_links(generator: torch.Generator, mesh: LatticeMesh,
+                 dtype=torch.complex128) -> torch.Tensor:
+    """Haar-random SU(3) links (4, T, Z, Y, X, 3, 3) on the generator's
+    device, by the construction of :func:`random_links_np`; a
+    ``torch.Generator`` gives other numbers than the JAX key or the numpy
+    seed, so parity tests feed numpy links to both sides."""
+    shape = (4, *mesh.spacetime_dims, 3, 3)
+    dev = generator.device
+    re = torch.randn(shape, generator=generator, dtype=torch.float64, device=dev)
+    im = torch.randn(shape, generator=generator, dtype=torch.float64, device=dev)
+    q, r = torch.linalg.qr(torch.complex(re, im))
+    d = torch.diagonal(r, dim1=-2, dim2=-1)
+    q = q * (d / d.abs())[..., None, :]
+    det = torch.linalg.det(q)
+    return (q / det[..., None, None] ** (1.0 / 3.0)).to(dtype)
+
+
+def random_links_cf(generator: torch.Generator, mesh: LatticeMesh,
+                    dtype=torch.float32) -> cplx.CF:
+    """:func:`random_links` as a split re/im CF of ``dtype``."""
+    u = random_links(generator, mesh)
+    return cplx.CF(u.real.to(dtype).contiguous(), u.imag.to(dtype).contiguous())
+
+
 def unit_links(mesh: LatticeMesh) -> np.ndarray:
     """Free-field (identity) links (4, T, Z, Y, X, 3, 3), complex128."""
     eye = np.eye(3, dtype=np.complex128)
@@ -81,6 +111,56 @@ def antiperiodic_t(links):
     out = links.clone() if hasattr(links, "clone") else np.array(links, copy=True)
     out[0, -1] = -out[0, -1]
     return out
+
+
+@dataclasses.dataclass(frozen=True)
+class WilsonDiracOperator(LinearOperator):
+    """Matrix-free hopping operator D on canonical fields (no diagonal: pair
+    with ``DiracOperator`` for A = I - kD). Counterpart of the JAX
+    package's ``WilsonDiracOperator``: neighbours by ``torch.roll``, colour
+    and spin products by ``einsum``."""
+
+    links: torch.Tensor  # (4, T, Z, Y, X, 3, 3) complex (an ndarray is converted)
+    mesh: LatticeMesh
+
+    def __post_init__(self):
+        object.__setattr__(self, "links", torch.as_tensor(self.links))
+
+    @property
+    def shape(self) -> tuple[int, int]:
+        return (self.mesh.size, self.mesh.size)
+
+    @property
+    def device(self) -> torch.device:
+        return self.links.device
+
+    @property
+    def dtype(self) -> torch.dtype:
+        """The real dtype of the links (the field dtype of CF fields)."""
+        return torch.float64 if self.links.dtype == torch.complex128 else torch.float32
+
+    def apply(self, x):
+        """D x on a complex tensor or a CF, flat (..., N) or lattice-shaped
+        (..., T, Z, Y, X, 4, 3)."""
+        xc = torch.complex(x.re, x.im) if cplx.is_cf(x) else x
+        flat = xc.ndim < len(self.mesh.dims)
+        psi = self.mesh.to_lattice(xc) if flat else xc
+        u_all = self.links.to(psi.dtype)
+        out = torch.zeros_like(psi)
+        for mu in range(4):
+            axis = psi.ndim - 6 + mu
+            u = u_all[mu]
+            pm = torch.as_tensor(P_MINUS[mu], dtype=psi.dtype, device=psi.device)
+            pp = torch.as_tensor(P_PLUS[mu], dtype=psi.dtype, device=psi.device)
+            # forward: (1 - gamma_mu) U_mu(x) psi(x + mu)
+            fwd = torch.einsum("tzyxab,...tzyxsb->...tzyxsa", u, torch.roll(psi, -1, axis))
+            out = out + torch.einsum("st,...tc->...sc", pm, fwd)
+            # backward: (1 + gamma_mu) U_mu^dag(x - mu) psi(x - mu)
+            udag = torch.roll(u.conj().transpose(-1, -2), 1, mu)
+            bwd = torch.einsum("tzyxab,...tzyxsb->...tzyxsa", udag, torch.roll(psi, 1, axis))
+            out = out + torch.einsum("st,...tc->...sc", pp, bwd)
+        out = self.mesh.to_flat(out) if flat else out
+        return cplx.CF(out.real.contiguous(), out.imag.contiguous()) if cplx.is_cf(x) else out
 
 
 def dirac_apply_np(

@@ -306,11 +306,12 @@ def _gcr_solve_fused(a, rhs, params: GCRParams, precond, x0, check_every: int = 
 def _mega_step_config(a, precond):
     """Step function ``(r, aps, alpha, lim) -> (r', az, r2, raw, apr)`` when
     the one-pass GCR step applies: unpreconditioned A = I - kD with
-    ``CudaWilsonDirac`` as D, single device. None otherwise."""
+    ``CudaWilsonDirac`` on t-major links as D, single device (the JAX
+    package's ``_links_is_tmajor`` and tb/zb checks). None otherwise."""
     if precond is not None or not isinstance(a, DiracOperator):
         return None
     d = a.d
-    if not isinstance(d, CudaWilsonDirac) or d.mesh.spacetime_dims[0] < 2:
+    if not isinstance(d, CudaWilsonDirac) or not d.t_major or d.mesh.spacetime_dims[0] < 2:
         return None
 
     def step(r, aps, alpha, lim):
@@ -322,12 +323,13 @@ def _mega_step_config(a, precond):
 def _z_step_config(a):
     """Step function ``(z, r, aps, lim) -> (az, raw, apr)`` when the
     preconditioned one-pass step applies: A = I - kD with
-    ``CudaWilsonDirac`` as D and an even t extent of at least 2, the
-    conditions of the JAX package's ``_z_step_config``. None otherwise."""
+    ``CudaWilsonDirac`` on t-major links as D and an even t extent of at
+    least 2, the conditions of the JAX package's ``_z_step_config``. None
+    otherwise."""
     if not isinstance(a, DiracOperator):
         return None
     d = a.d
-    t = d.mesh.spacetime_dims[0] if isinstance(d, CudaWilsonDirac) else 0
+    t = d.mesh.spacetime_dims[0] if isinstance(d, CudaWilsonDirac) and d.t_major else 0
     if t < 2 or t % 2:
         return None
 

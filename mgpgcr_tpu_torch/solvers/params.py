@@ -55,15 +55,19 @@ class GCRParams:
 
 @dataclass(frozen=True)
 class MGParams:
-    """Two-level adaptive MG controls (MG_Param, SolverParam.h:38-59); the
-    meaning of every field is that of the JAX package's ``MGParams``.
+    """Adaptive MG controls (MG_Param, SolverParam.h:38-59); the meaning of
+    every field is that of the JAX package's ``MGParams``. The defaults
+    are the reference's config of record (main.cpp:840-858) but for the
+    smoother, which the reference has off (``smoother_gcr=None``).
 
-    The port runs ``n_level=2``, ``coarse_format="dense"`` and
-    ``assembly="phased"``. ``transfer_backend`` "auto" runs the transfer
-    kernels on CUDA tensors and their plain versions on CPU tensors; the
-    port has no other route, and other values raise for CUDA tensors.
-    ``transfer_dtype`` is the storage dtype of the field-shaped basis
-    (None, "bfloat16", "float32").
+    ``coarse_format``: "dense", "bsr" (block-ELL) or "stencil" (the
+    block-stencil SpMV kernel on the card); "stencil" needs
+    ``assembly="phased"``. ``n_level`` > 2 coarsens the block grid again by
+    ``coarse_block`` per level. ``transfer_backend`` "auto" runs the
+    transfer kernels on CUDA tensors and their plain versions on CPU
+    tensors; the port has no other route, and other values raise for CUDA
+    tensors. ``transfer_dtype`` is the storage dtype of the field-shaped
+    basis (None, "bfloat16", "float32").
     """
 
     block: int = 4

@@ -21,7 +21,7 @@ from mgpgcr_tpu_torch import (
     setup_mg,
     with_link_dtype,
 )
-from mgpgcr_tpu_torch.kernels.dslash import dslash_apply, dslash_plain
+from mgpgcr_tpu_torch.kernels.dslash import dslash_apply, dslash_mu, dslash_mu_plain, dslash_plain
 from mgpgcr_tpu_torch.kernels.gcr_dslash import (
     gcr_stream_step,
     gcr_stream_step_plain,
@@ -42,6 +42,7 @@ from mgpgcr_tpu_torch.kernels.gcr_kernels import (
     update_xr,
     update_xr_plain,
 )
+from mgpgcr_tpu_torch.kernels.spmv import stencil_spmv, stencil_spmv_plain
 from mgpgcr_tpu_torch.kernels.transfer import prolong, prolong_plain, restrict, restrict_plain
 from mgpgcr_tpu_torch.ops import wilson
 
@@ -256,3 +257,74 @@ def test_loop_form_solves(dev):
     assert res.converged and relres(a, b, res.x) < 2e-6
     assert ap_update.launches > before[0] and beta_dots.launches > before[1]
     assert update_r.launches > before[2]
+
+
+# B12's grids: the three-level cell's coarse levels (ne 12 on 4^4 and 2^4
+# blocks, duplicate slots), a 1-d and a ragged one, ne past one warp
+SPMV_CASES = [((4, 4, 4, 4), 12), ((2, 2, 2, 2), 12), ((5,), 3), ((3, 1, 2), 40)]
+
+
+@pytest.mark.parametrize("dims,ne", SPMV_CASES, ids=lambda v: str(v))
+def test_stencil_spmv_kernel(dev, dims, ne):
+    gen = torch.Generator(device=dev).manual_seed(6)
+    nb = int(np.prod(dims))
+    blocks = cplx.random(gen, (nb, 2 * len(dims) + 1, ne, ne), torch.float32, dev)
+    x = cplx.random(gen, (nb * ne,), torch.float32, dev)
+    for bl in (blocks, blocks.astype(torch.bfloat16)):
+        before = stencil_spmv.launches
+        _close(stencil_spmv(bl, x, dims), stencil_spmv_plain(bl, x, dims))
+        assert stencil_spmv.launches == before + 1
+    with pytest.raises(ValueError):
+        stencil_spmv(blocks, x.astype(torch.float64), dims)
+    with pytest.raises(ValueError):
+        stencil_spmv(blocks, x[: nb * ne - 1], dims)
+
+
+@pytest.mark.parametrize("dims", LATTICES, ids=lambda d: "x".join(map(str, d)))
+def test_dslash_mu_kernel(dev, dims):
+    """B13 on mu-major links against its plain version, and the mu-major
+    operator (sign folded into the links) against K1 on 3-row t-major links
+    with the in-kernel sign."""
+    mesh = LatticeMesh((*dims, 4, 3))
+    canon = wilson.random_links_np(1, mesh)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    psi = cplx.random(gen, (4, 3, dims[0], dims[1], dims[2] * dims[3]), torch.float32, dev)
+    k = torch.tensor(0.13 - 0.02j, dtype=torch.complex64, device=dev)
+    tmajor = CudaWilsonDirac.build(canon, mesh, antiperiodic_t=True, device=dev)
+    for ldt in (torch.float32, torch.bfloat16):
+        mu = CudaWilsonDirac.build(canon, mesh, antiperiodic_t=True, device=dev, link_dtype=ldt,
+                                   tb=1, zb=1)
+        assert not mu.t_major
+        for kk in (None, k):
+            before = dslash_mu.launches
+            _close(dslash_mu(mu.links, psi, mesh, kk), dslash_mu_plain(mu.links, psi, mesh, kk))
+            assert dslash_mu.launches == before + 1
+    mu = CudaWilsonDirac.build(canon, mesh, antiperiodic_t=True, device=dev, tb=1, zb=1)
+    _close(mu.apply_dirac(psi, 0.12), tmajor.apply_dirac(psi, 0.12))
+
+
+def test_mu_major_and_stencil_solves(dev):
+    """The fused restart-5 solve on mu-major links (no one-pass step) and a
+    two-level MG with the block-stencil coarse operator at 8^4: each
+    converges, and B13 and B12 launched."""
+    mesh = LatticeMesh((8, 8, 8, 8, 4, 3))
+    canon = wilson.random_links_np(3, mesh)
+    d = CudaWilsonDirac.build(canon, mesh, antiperiodic_t=True, device=dev, tb=2)
+    a = DiracOperator(d, 0.12)
+    b = cplx.random(torch.Generator(device=dev).manual_seed(5), d.field_shape, device=dev)
+    before = (dslash_mu.launches, gcr_stream_step.launches)
+    res = gcr_solve(a, b, GCRParams(tol=1e-6, max_iter=200, restart=5, fused=True))
+    rr = b - a.apply(res.x)
+    assert res.converged and float(torch.sqrt(cplx.abs2_sum(rr) / cplx.abs2_sum(b))) < 2e-6
+    assert dslash_mu.launches > before[0] and gcr_stream_step.launches == before[1]
+
+    t = CudaWilsonDirac.build(canon, mesh, compress=True, antiperiodic_t=True, device=dev)
+    a = DiracOperator(t, 0.12)
+    mgp = setup_mg(torch.Generator(device=dev).manual_seed(4), a, mesh,
+                   MGParams(block=2, n_nullvecs=3, coarse_format="stencil", n_level=3))
+    before = stencil_spmv.launches
+    res = gcr_solve(a, b, GCRParams(tol=1e-6, max_iter=100, restart=5, fused=True),
+                    precond=mgp.apply)
+    rr = b - a.apply(res.x)
+    assert res.converged and float(torch.sqrt(cplx.abs2_sum(rr) / cplx.abs2_sum(b))) < 2e-6
+    assert stencil_spmv.launches > before and mgp.coarse_precond is not None

@@ -164,7 +164,9 @@ def test_port_imports_no_jax():
         "import sys, mgpgcr_tpu_torch, mgpgcr_tpu_torch.kernels, "
         "mgpgcr_tpu_torch.kernels.transfer, mgpgcr_tpu_torch.kernels.gcr_kernels, "
         "mgpgcr_tpu_torch.solvers.gcr, mgpgcr_tpu_torch.solvers.mg, "
-        "mgpgcr_tpu_torch.solvers.power, mgpgcr_tpu_torch.ops.dense; "
+        "mgpgcr_tpu_torch.solvers.power, mgpgcr_tpu_torch.ops.dense, "
+        "mgpgcr_tpu_torch.kernels.spmv, mgpgcr_tpu_torch.ops.blockstencil, "
+        "mgpgcr_tpu_torch.ops.bsr, mgpgcr_tpu_torch.ops.wilson; "
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m == 'mgpgcr_tpu' or m.startswith('mgpgcr_tpu.')]; "
         "assert not bad, bad"
