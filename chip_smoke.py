@@ -15,7 +15,9 @@ of record (block 4^4, 10 null vectors, smoother off, block-stencil coarse
 operator of 81,920 unknowns; and the block-ELL one from the same blocks),
 a three-level MG (the block-8 cell with block-stencil coarse operators on
 4^4 and 2^4 blocks), and the plain fused solve on mu-major 3-row links
-(``build(..., tb=2, zb=8)``).
+(``build(..., tb=2, zb=8)``); then the plain solve domain-decomposed over
+(t, z) shards, ranks as threads sharing the card and as a one-process NCCL
+group.
 
 Phases, each printed as one JSON line with its wall seconds:
   device    the card's name and power limit (nvidia-smi);
@@ -44,7 +46,20 @@ Phases, each printed as one JSON line with its wall seconds:
             independent f64 residual, launches;
   mg_three_level  the three-level setup and solve, launches by phase;
   mu_major  the plain fused solve on mu-major links: iterations, ms, the
-            independent f64 residual, launches (B13, and no one-pass step).
+            independent f64 residual, launches (B13, and no one-pass step);
+  dist_kernels  the ghost-plane kernels B14 and B15 on every rank of the
+            (2, 2) and (4, 1) grids of ranks sharing the card and of a
+            one-rank grid (the shard shapes of the dist solves), against
+            their plain versions and, gathered, against K1 and K2; the host
+            time of one exchange on each grid; their times (over short and
+            long windows, in turns) and bounds on a 16x16x32x32 shard of
+            the (2, 2) grid;
+  dist_solve  the plain cell's fused solve domain-decomposed over (t, z):
+            (2, 2) and (4, 1) grids of ThreadComm ranks on the card, each
+            timed four times in turns at interpreter switch intervals of
+            5, 0.5, 50 and 5 ms, and a world-size-1 NCCL group;
+            iterations, host ms per iteration, launches, the independent
+            f64 residual of the gathered x.
 Then the kernel table, the card line and the result line. Any failed
 check raises, and the script exits non-zero. Run: ``python3 chip_smoke.py``
 (``--profile`` adds a torch.profiler breakdown of the fused solves).
@@ -96,6 +111,10 @@ REPLACES = {
                    "csrc/gcr_loop.cu"),
     "stencil_spmv": ("stencil_spmv", "mgpgcr_tpu/ops/pallas/spmv.py:66", "csrc/spmv.cu"),
     "dslash_mu": ("dslash_mu", "mgpgcr_tpu/ops/pallas/dslash.py:83", "csrc/dslash.cu"),
+    "dslash_dist": ("dslash_dist", "mgpgcr_tpu/ops/pallas/dslash_dist.py:55", "csrc/dslash.cu"),
+    "gcr_stream_step_dist": ("gcr_stream_step_dist",
+                             "mgpgcr_tpu/ops/pallas/gcr_dslash_dist.py:107",
+                             "csrc/gcr_dslash.cu"),
 }
 REC_BLOCK, REC_NULLVECS = 4, 10  # the config of record (MGParams() defaults)
 # B12's shapes on the MG paths: (grid of blocks, ne); the config of
@@ -104,6 +123,17 @@ SPMV_SHAPES = {"record": ((8, 8, 8, 8), 20), "level2": ((4, 4, 4, 4), 12),
                "level3": ((2, 2, 2, 2), 12)}
 BIG_LIM = 20  # beta_dots past one chunk of 8 rows, lim past the cycles form's 16
 TURN_ROUNDS = 5  # rounds of cycles, loop, loop, cycles in the loop/cycles comparison
+DIST_SHARD = (2, 2)  # the (t, z) grid of the ghost-plane kernel checks: 16x16x32x32 shards
+DIST_GRIDS = ((2, 2), (4, 1))  # the domain-decomposed solves' (t, z) grids
+# B14/B15 are held to their plain versions at every shard shape the dist
+# solves give them: the thread grids' and the world-1 group's one 32^4
+# shard (t ghosts its own signed wrap planes, z wrapped in the kernel)
+DIST_KERNEL_GRIDS = tuple((g, ("t", "z")) for g in DIST_GRIDS) + (((1,), ("t",)),)
+EXCHANGE_REPS = 20  # exchanges of faces timed on the host
+DIST_LONG_CALLS = 400  # B14/B15 calls in the long timing window (each tens of us)
+# interpreter switch intervals (s) of the thread grids' timed solves, in
+# turns: the default, 10x shorter, 10x longer, the default again
+SWITCH_INTERVALS = (0.005, 0.0005, 0.05, 0.005)
 
 
 def emit(phase: str, t0: float, **kw) -> None:
@@ -1069,6 +1099,305 @@ def mu_major_path(canon, mesh, dev, card: str, independent_relres, plain_iters: 
     return counts
 
 
+def dist_kernel_phase(canon, mesh, dev, card: str, table: dict) -> list:
+    """B14 and B15 on every rank of each grid in DIST_KERNEL_GRIDS, so at
+    every shard shape the dist solves launch them, each against its plain
+    version with the ghosts received from the real neighbours (B14: 2- and
+    3-row, f32 and bf16 links, with and without k; B15: lim 1 and 5, alpha
+    != 0); on each grid the gathered outputs against K1 and K2 on the
+    global lattice (B15's partials summed over the ranks); the host time of
+    one exchange of faces on each grid; then CUDA-event times of both on
+    rank 0's shard of the DIST_SHARD grid. Fills ``table`` and returns the
+    (kernel, case, (rel, abs), tol) errors for the parity record."""
+    import torch
+
+    from mgpgcr_tpu_torch import ShardLocalWilsonDirac, cplx, links_from_numpy
+    from mgpgcr_tpu_torch.kernels.dslash import dslash_apply
+    from mgpgcr_tpu_torch.kernels.dslash_dist import dslash_dist, dslash_dist_plain, psi_ghosts
+    from mgpgcr_tpu_torch.kernels.gcr_dslash import gcr_stream_step
+    from mgpgcr_tpu_torch.kernels.gcr_dslash_dist import (
+        gcr_stream_step_dist, gcr_stream_step_dist_plain, step_ghosts,
+    )
+    from mgpgcr_tpu_torch.parallel import gather_field, make_shard_grid, run_spmd, shard_field
+
+    t1 = time.perf_counter()
+    S = RESTART
+    t, z, y, xx = mesh.spacetime_dims
+    fshape = (4, 3, t, z, y * xx)
+    gen = torch.Generator(device=dev).manual_seed(21)
+    psi = cplx.random(gen, fshape, torch.float32, dev)
+    r = cplx.random(gen, fshape, torch.float32, dev)
+    aps = cplx.random(gen, (S,) + fshape, torch.float32, dev)
+    kt = torch.tensor(K, dtype=torch.complex64, device=dev)
+    alpha = torch.tensor(0.3 - 0.2j, dtype=torch.complex64, device=dev)
+    variants = [(rows, lname, ldt) for rows in (3, 2)
+                for lname, ldt in (("f32", torch.float32), ("bf16", torch.bfloat16))]
+    main_links = links_from_numpy(canon, mesh, dev, compress=True)
+    k1 = dslash_apply(main_links, psi, mesh, kt, True)
+    k2 = gcr_stream_step(main_links, r, aps, alpha, kt, S, mesh, anti_t=True)
+    del main_links
+
+    def rank(comm, grid, axis_z, timed: bool):
+        errs, keep = [], {}
+        sf = lambda f: shard_field(f, grid, comm.rank, "t", axis_z)  # noqa: E731
+        x, rl, al = sf(psi), sf(r), sf(aps)
+        for rows, lname, ldt in variants:
+            d = ShardLocalWilsonDirac.build(canon, mesh, comm, "t", axis_z, compress=rows == 2,
+                                            antiperiodic_t=True, link_dtype=ldt)
+            g = psi_ghosts(x, comm, "t", axis_z, True, d.ghost_links)
+            for kk in (None, kt):
+                got = dslash_dist(d.links, x, d.local_mesh, g, kk)
+                want = dslash_dist_plain(d.links, x, d.local_mesh, g, kk)
+                errs.append(("dslash_dist", f"{lname}/{rows}row/k={kk is not None}",
+                             rel_err(got, want), FIELD_TOL))
+            if (rows, lname) == (2, "f32"):
+                keep.update(op=d, ghosts=g, a_psi=got)
+        d = keep["op"]
+        lm = d.local_mesh
+        steps = {}
+        for lim in range(1, S + 1):  # every lim's ghosts, for the timing
+            if not timed and lim not in (1, S):
+                continue
+            gs = step_ghosts(rl, al, alpha, lim, comm, "t", axis_z, True, d.ghost_links)
+            steps[lim] = gs
+            if lim not in (1, S):
+                continue
+            out = gcr_stream_step_dist(d.links, rl, al, alpha, kt, lim, lm, gs)
+            pl = gcr_stream_step_dist_plain(d.links, rl, al, alpha, kt, lim, lm, gs)
+            g64 = step_ghosts(f64(rl), f64(al), f64(alpha), lim, comm, "t", axis_z, True,
+                              d.ghost_links)
+            p64 = gcr_stream_step_dist_plain(d.links, f64(rl), f64(al), f64(alpha), f64(kt),
+                                             lim, lm, g64)
+            errs += [("gcr_stream_step_dist", f"r'/lim={lim}", rel_err(out[0], pl[0]), FIELD_TOL),
+                     ("gcr_stream_step_dist", f"az/lim={lim}", rel_err(out[1], pl[1]), FIELD_TOL),
+                     ("gcr_stream_step_dist", f"r2/lim={lim}", rel_err(out[2], p64[2]), DOT_TOL),
+                     ("gcr_stream_step_dist", f"raw/lim={lim}",
+                      rel_err(out[3][:lim], p64[3][:lim]), DOT_TOL),
+                     ("gcr_stream_step_dist", f"apr/lim={lim}",
+                      rel_err(out[4][:lim], p64[4][:lim]), DOT_TOL),
+                     ("gcr_stream_step_dist", f"azr/lim={lim}", rel_err(out[4][S:], p64[4][S:]),
+                      DOT_TOL)]
+            if lim == S:
+                keep["step"] = (out[0], out[1], comm.allsum(out[2]), comm.allsum(out[3]),
+                                comm.allsum(out[4]))
+        # host time of one iteration's exchange of faces (B15's, all ranks at once)
+        torch.cuda.synchronize()
+        comm.barrier()
+        s0 = time.perf_counter()
+        for _ in range(EXCHANGE_REPS):
+            step_ghosts(rl, al, alpha, S, comm, "t", axis_z, True, d.ghost_links)
+        torch.cuda.synchronize()
+        exchange_ms = 1e3 * (time.perf_counter() - s0) / EXCHANGE_REPS
+        keep.update(errs=errs, exchange_ms=exchange_ms)
+        if timed:
+            keep.update(steps=steps, x=x, r=rl, aps=al)
+        else:
+            del keep["op"], keep["ghosts"]
+        return keep
+
+    errs, per_grid, timing_rank = [], {}, None
+    for sizes, names in DIST_KERNEL_GRIDS:
+        grid = make_shard_grid(sizes, names, device=dev)
+        axis_z = "z" if "z" in names else None
+        timed = sizes == DIST_SHARD
+        ranks = run_spmd(grid, lambda comm: rank(comm, grid, axis_z, timed))
+        tag = "x".join(map(str, sizes))
+        errs += [(kname, f"{tag}/rank{i}/{what}", err, tol)
+                 for i, rk in enumerate(ranks) for kname, what, err, tol in rk["errs"]]
+        # the gathered outputs against K1 and K2 on the global lattice
+        got = gather_field([rk["a_psi"] for rk in ranks], grid, "t", axis_z)
+        errs.append(("dslash_dist", f"{tag}/gathered vs K1", rel_err(got, k1), FIELD_TOL))
+        step = ranks[0]["step"]
+        for i, what in ((0, "r'"), (1, "az")):
+            got = gather_field([rk["step"][i] for rk in ranks], grid, "t", axis_z)
+            errs.append(("gcr_stream_step_dist", f"{tag}/gathered {what} vs K2",
+                         rel_err(got, k2[i]), FIELD_TOL))
+        errs += [("gcr_stream_step_dist", f"{tag}/summed {what} vs K2", rel_err(step[i], k2[i]),
+                  DOT_TOL) for i, what in ((2, "r2"), (3, "raw"), (4, "apr"))]
+        per_grid[tag] = {"shard_tz": list(ranks[0]["a_psi"].shape[2:4]),
+                         "exchange_host_ms": [rk["exchange_ms"] for rk in ranks]}
+        if timed:
+            timing_rank = ranks[0]
+        del ranks, got, step
+    for kname, what, err, tol in errs:
+        check(err[0] <= tol, f"{kname} {what}: {err[0]} > {tol}")
+    del k1, k2
+
+    # timing on rank 0's shard of the DIST_SHARD grid, two-row f32 links, ghosts as received
+    r0 = timing_rank
+    d, g, x = r0["op"], r0["ghosts"], r0["x"]
+    lm = d.local_mesh
+    tl, zl = lm.spacetime_dims[:2]
+    v = y * xx
+    n_loc = lm.n_sites
+    link_b = LINK_B[(2, "f32")]
+    # ghosts read once: two psi planes and a U_t plane; two psi columns and a U_z column
+    ghost_b = (2 * FIELD_B + link_b // 4) * (zl * v + tl * v)
+    b14_bytes = n_loc * (link_b + 2 * FIELD_B) + ghost_b
+    b14_flops = n_loc * (DSLASH_FLOPS_PER_SITE + RECON_FLOPS + K_FLOPS)
+    windows = {}  # ms per call over short and long windows, in turns
+
+    def in_turns(name, fn, calls):
+        """cuda_ms's default window (20 calls of fn after 3) and a long one
+        (DIST_LONG_CALLS kernel calls after a quarter as many), in the
+        turns short, long, long, short; the long ones' mean is the row's."""
+        n = max(DIST_LONG_CALLS // calls, 1)
+        short = lambda: cuda_ms(fn) / calls  # noqa: E731
+        long = lambda: cuda_ms(fn, reps=n, warmup=max(n // 4, 1)) / calls  # noqa: E731
+        w = [short(), long(), long(), short()]
+        windows[name] = {"short_ms": [w[0], w[3]], "long_ms": [w[1], w[2]]}
+        return (w[1] + w[2]) / 2
+
+    ms = in_turns("dslash_dist", lambda: dslash_dist(d.links, x, lm, g, kt), 1)
+    pms = cuda_ms(lambda: dslash_dist_plain(d.links, x, lm, g, kt), reps=5, warmup=1)
+    table["dslash_dist"] = (ms, pms, *bound(b14_bytes, b14_flops), None, b14_bytes)
+    rl, al, steps = r0["r"], r0["aps"], r0["steps"]
+
+    def cycle(fn):
+        for lim in range(1, S + 1):
+            fn(d.links, rl, al, alpha, kt, lim, lm, steps[lim])
+
+    ms = in_turns("gcr_stream_step_dist", lambda: cycle(gcr_stream_step_dist), S)
+    pms = cuda_ms(lambda: cycle(gcr_stream_step_dist_plain), reps=3, warmup=1) / S
+    b15_bytes = sum(n_loc * (link_b + (3 + lim) * FIELD_B) for lim in range(1, S + 1)) / S \
+        + ghost_b
+    b15_flops = sum(n_loc * (DSLASH_FLOPS_PER_SITE + RECON_FLOPS + K_FLOPS + 96
+                             + (2 * lim + 1) * 96 + 48) for lim in range(1, S + 1)) / S
+    table["gcr_stream_step_dist"] = (ms, pms, *bound(b15_bytes, b15_flops), None, b15_bytes)
+    torch.cuda.synchronize()
+    worst = {}
+    for kname, what, err, _ in errs:
+        key = f"{kname}/{what.split('/')[0]}"
+        worst[key] = max(worst.get(key, 0.0), err[0])
+    emit("dist_kernels", t1, card=card, timing_grid=list(DIST_SHARD), timing_shard=list(lm.dims),
+         cases=len(errs), field_tol=FIELD_TOL, dot_tol=DOT_TOL, worst_rel=worst,
+         ghost_bytes=ghost_b, grids=per_grid, windows=windows,
+         kernels={k: {"ms": table[k][0], "plain_ms": table[k][1], "bound_ms": table[k][2],
+                      "bound_by": table[k][3], "bytes": table[k][5]}
+                  for k in ("dslash_dist", "gcr_stream_step_dist")})
+    return errs
+
+
+def dist_solve_phase(canon, mesh, dev, card: str, b, independent_relres, plain_iters: int,
+                     x_plain) -> list:
+    """The domain-decomposed fused restart-5 solve of the plain cell: on the
+    (2, 2) and (4, 1) ThreadComm grids of ranks sharing the card, timed in
+    turns at each of SWITCH_INTERVALS (the ranks hand the interpreter lock
+    to each other at every exchange and sum), and on a world-size-1 NCCL
+    group (TorchDistComm). Iterations against the single-device fused
+    solve, host ms per iteration, launches per solve, the independent f64
+    residual of the gathered x. Returns each path's launch counts (the
+    first timed run of each grid; the others must repeat them)."""
+    import tempfile
+
+    import torch
+
+    from mgpgcr_tpu_torch import (
+        DiracOperator, GCRParams, ShardLocalWilsonDirac, gcr_solve_sharded, kernels,
+    )
+    from mgpgcr_tpu_torch.parallel import (
+        TorchDistComm, gather_field, init_distributed, make_shard_grid, run_spmd, shard_field,
+    )
+
+    t1 = time.perf_counter()
+    params = GCRParams(tol=1e-6, max_iter=500, restart=RESTART, fused=True)
+    out, all_counts = {}, []
+
+    def checked(what, res, x, counts, walls):
+        check(res.converged, f"{what} converged")
+        check(x.shape == b.shape and bool(torch.isfinite(x.re).all())
+              and bool(torch.isfinite(x.im).all()), f"{what} solution finite")
+        rel = independent_relres(x)
+        check(rel <= 2e-6, f"{what} independent residual {rel} <= 2e-6")
+        check(abs(res.n_iters - plain_iters) <= 2,
+              f"{what} iterations {res.n_iters} within 2 of the single-device {plain_iters}")
+        check(counts["gcr_stream_step_dist"] > 0 and counts["dslash_dist"] > 0
+              and counts["gcr_stream_step"] == 0 and counts["dslash_apply"] == 0,
+              f"{what}: B14 and B15 launched, K1 and K2 not: {counts}")
+        all_counts.append(counts)
+        return {"iters": res.n_iters, "relres": res.final_relres,
+                "independent_relres_f64": rel, "seconds": walls,
+                "ms_per_iter": [1e3 * w / max(res.n_iters, 1) for w in walls],
+                "launches": counts}
+
+    old_interval = sys.getswitchinterval()
+    for sizes in DIST_GRIDS:
+        grid = make_shard_grid(sizes, ("t", "z"), device=dev)
+
+        def rank(comm):
+            d = ShardLocalWilsonDirac.build(canon, mesh, comm, "t", "z", compress=True,
+                                            antiperiodic_t=True)
+            a = DiracOperator(d, K)
+            bl = shard_field(b, grid, comm.rank, "t", "z")
+            gcr_solve_sharded(a, bl, params, comm)  # warm-up
+            runs = []
+            for interval in SWITCH_INTERVALS:
+                torch.cuda.synchronize()
+                comm.barrier()
+                if comm.rank == 0:
+                    sys.setswitchinterval(interval)
+                    kernels.reset_launches()
+                comm.barrier()
+                s0 = time.perf_counter()
+                res = gcr_solve_sharded(a, bl, params, comm)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - s0
+                comm.barrier()
+                runs.append((res, wall, kernels.launch_counts()))
+            return runs
+
+        try:
+            ranks = run_spmd(grid, rank)
+        finally:
+            sys.setswitchinterval(old_interval)
+        first = [rk[0] for rk in ranks]
+        res = first[0][0]
+        x = gather_field([rk[0].x for rk in first], grid, "t", "z")
+        check(all(rk[0].n_iters == res.n_iters for rk in first), f"{sizes}: ranks agree")
+        for i in range(1, len(SWITCH_INTERVALS)):
+            check(all(rk[i][0].n_iters == res.n_iters and rk[i][2] == first[0][2]
+                      and torch.equal(rk[i][0].x.re, rk[0][0].x.re) for rk in ranks),
+                  f"{sizes}: timed runs repeat (iterations, launches, x)")
+        tag = f"thread_{sizes[0]}x{sizes[1]}"
+        out[tag] = checked(f"ThreadComm {sizes}", res, x, first[0][2],
+                           [rk[0][1] for rk in ranks])
+        # host ms per iteration on rank 0's clock, one entry per timed run in turns
+        out[tag]["switch_runs"] = [
+            {"switch_interval_s": iv, "ms_per_iter": 1e3 * ranks[0][i][1] / max(res.n_iters, 1)}
+            for i, iv in enumerate(SWITCH_INTERVALS)]
+        del ranks, first, x
+
+    # one process, world size 1, NCCL: the same per-rank code over torch.distributed
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = init_distributed(f"file://{tmp}/rendezvous", 1, 0, device=dev)
+        try:
+            comm = TorchDistComm(make_shard_grid((1,), ("t",), device=dev), device=dev)
+            d = ShardLocalWilsonDirac.build(canon, mesh, comm, "t", None, compress=True,
+                                            antiperiodic_t=True)
+            a = DiracOperator(d, K)
+            gcr_solve_sharded(a, b, params, comm)  # warm-up
+            torch.cuda.synchronize()
+            kernels.reset_launches()
+            s0 = time.perf_counter()
+            res = gcr_solve_sharded(a, b, params, comm)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - s0
+            counts = kernels.launch_counts()
+            backend = torch.distributed.get_backend()
+        finally:
+            torch.distributed.destroy_process_group()
+    check(backend == "nccl" and cfg.num_processes == 1, f"world-1 group on {backend}")
+    check(res.n_iters == plain_iters,
+          f"NCCL world-1 iterations {res.n_iters} == single-device {plain_iters}")
+    xerr = rel_err(res.x, x_plain)[0]
+    check(xerr <= 1e-6, f"NCCL world-1 x within 1e-6 of the single-device x: {xerr}")
+    out["nccl_world1"] = checked("NCCL world-1", res, res.x, counts, [wall])
+    out["nccl_world1"]["x_rel_diff_vs_single_device"] = xerr
+    emit("dist_solve", t1, card=card, k=K, tol=1e-6, restart=RESTART,
+         single_device_iters=plain_iters, **out)
+    return all_counts
+
+
 def main() -> int:
     import torch
 
@@ -1206,7 +1535,8 @@ def main() -> int:
     new_inputs = new_kernel_parity(mesh, canon, variants, psi, kt, gen, note)
     torch.cuda.synchronize()
     emit("parity", t1, cases=len(worst), field_tol=FIELD_TOL, dot_tol=DOT_TOL,
-         worst={k: max(v for kk, v in worst.items() if kk.startswith(k + ":")) for k in max_abs},
+         worst={k: max(v for kk, v in worst.items() if kk.startswith(k + ":")) for k in max_abs
+                if any(kk.startswith(k + ":") for kk in worst)},
          max_abs_err=max_abs, max_abs_err_reductions=max_abs_dot)
 
     # ---- timing ------------------------------------------------------------
@@ -1319,6 +1649,8 @@ def main() -> int:
             check(solves[form]["launches"] == counts and solves[form]["iters"] == res.n_iters,
                   f"{form} runs repeat")
             continue
+        if form == "fused":
+            x_plain = x
         solves[form] = {"iters": res.n_iters, "relres": res.final_relres,
                         "independent_relres_f64": rel, "seconds": [wall], "launches": counts}
     for v in solves.values():
@@ -1353,7 +1685,14 @@ def main() -> int:
                                     {"cycles": mg_iters, "auto": loop_iters}, profile)
     mu_counts = mu_major_path(canon, mesh, dev, card, independent_relres,
                               solves["fused"]["iters"])
-    path_counts = (plain_counts, mg_counts, loop_counts, record_counts, three_counts, mu_counts)
+
+    # ---- the domain-decomposed solve: B14 and B15 --------------------------
+    for kname, what, err, tol in dist_kernel_phase(canon, mesh, dev, card, table):
+        note(kname, what, err, tol)
+    dist_counts = dist_solve_phase(canon, mesh, dev, card, b, independent_relres,
+                                   solves["fused"]["iters"], x_plain)
+    path_counts = (plain_counts, mg_counts, loop_counts, record_counts, three_counts, mu_counts,
+                   *dist_counts)
 
     rows = []
     for kname, (short, replaces, source) in REPLACES.items():

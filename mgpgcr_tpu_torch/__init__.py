@@ -7,7 +7,10 @@ at first use and bound with ``ctypes``), and flexible GCR runs either as
 the generic loop or through the kernels, in the restart-cycle form or the
 loop form on direction stacks (and as the host-driven ``gcr_solve_eager``),
 plain or with the multigrid preconditioner (``setup_mg``: any number of
-levels, dense, block-ELL or block-stencil coarse operators). Entry
+levels, dense, block-ELL or block-stencil coarse operators), on one card or
+domain-decomposed over (t, z) shards (``gcr_solve_sharded`` per rank,
+``gcr_solve_grid`` for every rank of a grid in one process; ranks as
+threads or as ``torch.distributed`` processes, ``parallel/``). Entry
 points run on CUDA unless the caller passes ``device="cpu"``; CPU tensors
 take each kernel's plain PyTorch version. The JAX package ``mgpgcr_tpu``
 is the reference this package is held against.
@@ -20,6 +23,7 @@ from mgpgcr_tpu_torch.ops.blockstencil import StencilBlockOperator
 from mgpgcr_tpu_torch.ops.bsr import BlockSparseOperator
 from mgpgcr_tpu_torch.ops.dense import DenseOperator
 from mgpgcr_tpu_torch.ops.dirac import DiracOperator
+from mgpgcr_tpu_torch.ops.dslash_dist import ShardLocalWilsonDirac
 from mgpgcr_tpu_torch.ops.dslash import (
     CudaWilsonDirac,
     field_from_numpy,
@@ -34,7 +38,19 @@ from mgpgcr_tpu_torch.ops.wilson_slab import (
     links_to_slab,
     with_link_dtype,
 )
+from mgpgcr_tpu_torch.parallel import (
+    ShardedWilsonDirac,
+    ShardGrid,
+    ThreadComm,
+    TorchDistComm,
+    gather_field,
+    init_distributed,
+    make_shard_grid,
+    run_spmd,
+    shard_field,
+)
 from mgpgcr_tpu_torch.solvers.gcr import GCRSolver, gcr_solve, gcr_solve_eager, gcr_solve_jit
+from mgpgcr_tpu_torch.solvers.gcr_dist import gcr_solve_grid, gcr_solve_sharded
 from mgpgcr_tpu_torch.solvers.mg import (
     MGPreconditioner,
     mg_from_numpy,
@@ -77,4 +93,16 @@ __all__ = [
     "setup_mg_from",
     "mg_from_numpy",
     "inverse_power_vectors",
+    "ShardLocalWilsonDirac",
+    "ShardedWilsonDirac",
+    "ShardGrid",
+    "ThreadComm",
+    "TorchDistComm",
+    "gather_field",
+    "init_distributed",
+    "make_shard_grid",
+    "run_spmd",
+    "shard_field",
+    "gcr_solve_sharded",
+    "gcr_solve_grid",
 ]

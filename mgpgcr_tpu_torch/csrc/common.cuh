@@ -65,15 +65,11 @@ struct Geom {
       : T(T_), Z(Z_), Y(Y_), X(X_), V(Y_ * X_), ZV(Z_ * Y_ * X_), N(T_ * Z_ * Y_ * X_) {}
 };
 
-// U_mu at the site with plane offset zv = z*V + v in t-plane t: t-major
-// links, whose (a, b) entries lie ZV apart, or mu-major ones (MU_MAJOR),
-// whose entries lie a whole field (N) apart.
-template <int R, typename LT, bool MU_MAJOR>
-__device__ __forceinline__ void load_link(su3& u, const LT* ure, const LT* uim, int t, int mu,
-                                          int zv, const Geom& g) {
-  static_assert(!MU_MAJOR || R == 3, "mu-major links have 3 rows");
-  const int base = MU_MAJOR ? mu * 9 * g.N + t * g.ZV + zv : (t * 4 + mu) * R * 3 * g.ZV + zv;
-  const int step = MU_MAJOR ? g.N : g.ZV;
+// An SU(3) link whose (a, b) entries lie ``step`` apart from ``base``; with
+// R = 2, row 2 = conj(row0 x row1) is rebuilt.
+template <int R, typename LT>
+__device__ __forceinline__ void load_su3(su3& u, const LT* ure, const LT* uim, int base,
+                                         int step) {
 #pragma unroll
   for (int a = 0; a < R; ++a)
 #pragma unroll
@@ -94,6 +90,38 @@ __device__ __forceinline__ void load_link(su3& u, const LT* ure, const LT* uim, 
   }
 }
 
+// U_mu at the site with plane offset zv = z*V + v in t-plane t: t-major
+// links, whose (a, b) entries lie ZV apart, or mu-major ones (MU_MAJOR),
+// whose entries lie a whole field (N) apart.
+template <int R, typename LT, bool MU_MAJOR>
+__device__ __forceinline__ void load_link(su3& u, const LT* ure, const LT* uim, int t, int mu,
+                                          int zv, const Geom& g) {
+  static_assert(!MU_MAJOR || R == 3, "mu-major links have 3 rows");
+  const int base = MU_MAJOR ? mu * 9 * g.N + t * g.ZV + zv : (t * 4 + mu) * R * 3 * g.ZV + zv;
+  load_su3<R, LT>(u, ure, uim, base, MU_MAJOR ? g.N : g.ZV);
+}
+
+// The ghost planes of a shard's neighbours (B14, B15): psi at t = T (tp)
+// and t = -1 (tm), each (4, 3, 1, Z, V) with any boundary sign already
+// applied, and U_t at t = -1 (ut, (R, 3, Z, V), stored form); when z is
+// split over ranks (zp not null), psi at z = Z (zp) and z = -1 (zm), each
+// (4, 3, T, 1, V), and U_z at z = -1 (uz, (T, R, 3, V)).
+template <typename LT>
+struct Halo {
+  const float *tp_re, *tp_im, *tm_re, *tm_im;
+  const LT *ut_re, *ut_im;
+  const float *zp_re, *zp_im, *zm_re, *zm_im;
+  const LT *uz_re, *uz_im;
+};
+
+// The launchers' table of 12 ghost pointers, in the order of Halo's fields.
+template <typename LT>
+inline Halo<LT> halo_from(const void* const* p) {
+  auto f = [p](int i) { return static_cast<const float*>(p[i]); };
+  auto l = [p](int i) { return static_cast<const LT*>(p[i]); };
+  return {f(0), f(1), f(2), f(3), l(4), l(5), f(6), f(7), f(8), f(9), l(10), l(11)};
+}
+
 // Reads psi(s, c) at site n from a field.
 struct FieldLoad {
   const float* re;
@@ -101,6 +129,18 @@ struct FieldLoad {
   int N;
   __device__ __forceinline__ cf operator()(int s, int c, int n) const {
     const int o = (s * 3 + c) * N + n;
+    return {__ldg(re + o), __ldg(im + o)};
+  }
+};
+
+// Reads psi(s, c) at index i of a ghost plane whose (s, c) slabs lie
+// ``stride`` apart.
+struct GhostLoad {
+  const float* re;
+  const float* im;
+  int stride;
+  __device__ __forceinline__ cf operator()(int s, int c, int i) const {
+    const int o = (s * 3 + c) * stride + i;
     return {__ldg(re + o), __ldg(im + o)};
   }
 };
@@ -181,10 +221,15 @@ __device__ __forceinline__ void temporal_hop(const Load& L, int nb, const su3& u
   }
 }
 
-// out = (D psi)(site n), psi read through L; site n = (t, z, v).
-template <int R, typename LT, bool MU_MAJOR = false, class Load>
+// out = (D psi)(site n), psi read through L; site n = (t, z, v). With
+// HALO, a neighbour across the shard's t edge (and its z edge, when h->zp
+// is set) is read from the ghost planes of h instead of the wrapped plane,
+// and any boundary sign rides in the ghosts (anti_t is not read); the
+// interior loader L is never applied to a ghost value.
+template <int R, typename LT, bool MU_MAJOR = false, bool HALO = false, class Load>
 __device__ __forceinline__ void dslash_site(const Load& L, const LT* ure, const LT* uim,
-                                            const Geom& g, int n, bool anti_t, cf (&out)[4][3]) {
+                                            const Geom& g, int n, bool anti_t, cf (&out)[4][3],
+                                            const Halo<LT>* h = nullptr) {
   const int t = n / g.ZV;
   const int zv = n - t * g.ZV;
   const int z = zv / g.V;
@@ -201,19 +246,36 @@ __device__ __forceinline__ void dslash_site(const Load& L, const LT* ure, const 
     const int tf = (t + 1 == g.T) ? 0 : t + 1;
     const int tb = (t == 0) ? g.T - 1 : t - 1;
     load_link<R, LT, MU_MAJOR>(u, ure, uim, t, 0, zv, g);
-    temporal_hop<true>(L, tf * g.ZV + zv, u, (anti_t && t + 1 == g.T) ? -1.f : 1.f, out);
-    load_link<R, LT, MU_MAJOR>(u, ure, uim, tb, 0, zv, g);
-    temporal_hop<false>(L, tb * g.ZV + zv, u, (anti_t && t == 0) ? -1.f : 1.f, out);
+    if (HALO && t + 1 == g.T)
+      temporal_hop<true>(GhostLoad{h->tp_re, h->tp_im, g.ZV}, zv, u, 1.f, out);
+    else
+      temporal_hop<true>(L, tf * g.ZV + zv, u, (anti_t && t + 1 == g.T) ? -1.f : 1.f, out);
+    if (HALO && t == 0) {
+      load_su3<R, LT>(u, h->ut_re, h->ut_im, zv, g.ZV);
+      temporal_hop<false>(GhostLoad{h->tm_re, h->tm_im, g.ZV}, zv, u, 1.f, out);
+    } else {
+      load_link<R, LT, MU_MAJOR>(u, ure, uim, tb, 0, zv, g);
+      temporal_hop<false>(L, tb * g.ZV + zv, u, (anti_t && t == 0) ? -1.f : 1.f, out);
+    }
   }
   const int tplane = t * g.ZV;
   // z
   {
+    const bool zh = HALO && h->zp_re != nullptr;
     const int zf = (z + 1 == g.Z) ? 0 : z + 1;
     const int zb = (z == 0) ? g.Z - 1 : z - 1;
     load_link<R, LT, MU_MAJOR>(u, ure, uim, t, 1, zv, g);
-    spatial_hop<1, true>(L, tplane + zf * g.V + v, u, out);
-    load_link<R, LT, MU_MAJOR>(u, ure, uim, t, 1, zb * g.V + v, g);
-    spatial_hop<1, false>(L, tplane + zb * g.V + v, u, out);
+    if (zh && z + 1 == g.Z)
+      spatial_hop<1, true>(GhostLoad{h->zp_re, h->zp_im, g.T * g.V}, t * g.V + v, u, out);
+    else
+      spatial_hop<1, true>(L, tplane + zf * g.V + v, u, out);
+    if (zh && z == 0) {
+      load_su3<R, LT>(u, h->uz_re, h->uz_im, t * R * 3 * g.V + v, g.V);
+      spatial_hop<1, false>(GhostLoad{h->zm_re, h->zm_im, g.T * g.V}, t * g.V + v, u, out);
+    } else {
+      load_link<R, LT, MU_MAJOR>(u, ure, uim, t, 1, zb * g.V + v, g);
+      spatial_hop<1, false>(L, tplane + zb * g.V + v, u, out);
+    }
   }
   const int zrow = tplane + z * g.V;
   // y: a step of X on the merged axis

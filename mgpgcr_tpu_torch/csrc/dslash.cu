@@ -25,22 +25,34 @@
 // it is K1's thread-per-site kernel with the mu-major link strides (each
 // (a, b) entry a whole field apart) and no in-kernel sign. Bound: bytes,
 // 288 B of links, 96 B of psi and 96 B out per site, 0.150 ms at 32^4.
+//
+// B14: K1 on one shard of a lattice split over (t, z) (HALO). Replaces
+// mgpgcr_tpu/ops/pallas/dslash_dist.py::_dslash_stream_dist_kernel (via
+// dslash_apply_local). The TPU kernel streams the shard's t-planes with the
+// neighbours' planes as extra windows; here it is K1's thread-per-site
+// kernel whose neighbours across the shard's t edge, and its z edge when z
+// is split, are read from ghost planes (common.cuh Halo) that the host
+// received from the neighbouring ranks, the anti-periodic sign already
+// folded into them. Bound: bytes, K1's 384 B/site on two-row f32 links
+// plus the ghosts read once (two psi planes and a U_t plane, and with z
+// split two psi columns and a U_z column): 108.5 MB, 0.032 ms, for a
+// 16x16x32x32 shard.
 #include "common.cuh"
 
 namespace mg {
 
-template <int R, typename LT, bool MU_MAJOR>
+template <int R, typename LT, bool MU_MAJOR, bool HALO>
 __global__ void __launch_bounds__(kThreads)
 dslash_kernel(const float* __restrict__ pre, const float* __restrict__ pim,
               const LT* __restrict__ ure, const LT* __restrict__ uim, float* __restrict__ ore,
               float* __restrict__ oim, const float* __restrict__ k, int T, int Z, int Y, int X,
-              int anti_t) {
+              int anti_t, const __grid_constant__ Halo<LT> h) {
   const Geom g(T, Z, Y, X);
   const int n = blockIdx.x * blockDim.x + threadIdx.x;
   if (n >= g.N) return;
   const FieldLoad L{pre, pim, g.N};
   cf out[4][3];
-  dslash_site<R, LT, MU_MAJOR>(L, ure, uim, g, n, anti_t != 0, out);
+  dslash_site<R, LT, MU_MAJOR, HALO>(L, ure, uim, g, n, anti_t != 0, out, &h);
   if (k != nullptr) {
     const cf kk = {k[0], k[1]};
 #pragma unroll
@@ -58,14 +70,14 @@ dslash_kernel(const float* __restrict__ pre, const float* __restrict__ pim,
     }
 }
 
-template <int R, typename LT, bool MU_MAJOR = false>
+template <int R, typename LT, bool MU_MAJOR = false, bool HALO = false>
 static void launch_dslash(const float* pre, const float* pim, const void* ure, const void* uim,
                           float* ore, float* oim, const float* k, int T, int Z, int Y, int X,
-                          int anti_t, cudaStream_t stream) {
+                          int anti_t, cudaStream_t stream, const Halo<LT>& h = Halo<LT>{}) {
   const int n = T * Z * Y * X;
-  dslash_kernel<R, LT, MU_MAJOR><<<(n + kThreads - 1) / kThreads, kThreads, 0, stream>>>(
+  dslash_kernel<R, LT, MU_MAJOR, HALO><<<(n + kThreads - 1) / kThreads, kThreads, 0, stream>>>(
       pre, pim, static_cast<const LT*>(ure), static_cast<const LT*>(uim), ore, oim, k, T, Z, Y,
-      X, anti_t);
+      X, anti_t, h);
 }
 
 }  // namespace mg
@@ -98,6 +110,31 @@ extern "C" int mg_dslash_mu(const float* pre, const float* pim, const void* ure,
     launch_dslash<3, __nv_bfloat16, true>(pre, pim, ure, uim, ore, oim, k, T, Z, Y, X, 0, s);
   else
     launch_dslash<3, float, true>(pre, pim, ure, uim, ore, oim, k, T, Z, Y, X, 0, s);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// B14: t-major links, ghost planes in ``halo`` (common.cuh halo_from), no
+// in-kernel boundary sign
+extern "C" int mg_dslash_dist(const float* pre, const float* pim, const void* ure,
+                              const void* uim, float* ore, float* oim, const float* k, int T,
+                              int Z, int Y, int X, int rows, int bf16, const void* const* halo,
+                              void* stream) {
+  using namespace mg;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define MG_DIST(RR, LT)                                                                \
+  launch_dslash<RR, LT, false, true>(pre, pim, ure, uim, ore, oim, k, T, Z, Y, X, 0, s, \
+                                     halo_from<LT>(halo))
+  if (rows == 3 && !bf16)
+    MG_DIST(3, float);
+  else if (rows == 2 && !bf16)
+    MG_DIST(2, float);
+  else if (rows == 3 && bf16)
+    MG_DIST(3, __nv_bfloat16);
+  else if (rows == 2 && bf16)
+    MG_DIST(2, __nv_bfloat16);
+  else
+    return static_cast<int>(cudaErrorInvalidValue);
+#undef MG_DIST
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -31,6 +31,16 @@
 // already in registers plus one read of each aps_j at the thread's own
 // site.
 //
+// B15 (gcr_stream_step_dist): K2 on one shard of a lattice split over
+// (t, z) (HALO). Replaces mgpgcr_tpu/ops/pallas/gcr_dslash_dist.py::
+// _gcr_step_dist_kernel (via gcr_stream_step_local). The stencil's
+// neighbours across the shard's edges are the ghost planes of common.cuh
+// Halo, which the neighbouring ranks formed as r' = r - alpha ap on their
+// faces and the host signed; the RPrimeLoad axpy applies to interior
+// neighbours only, never to a ghost. The dots are this shard's partials:
+// the solver sums them over ranks. Bound: bytes, K2's plus the ghosts read
+// once.
+//
 // Dot products: f32 within a thread, f64 from the warp shuffle on, one
 // partial per block; reduce_partials adds the partials in block order, so
 // results are deterministic. alpha and k are read from device memory, so
@@ -46,7 +56,7 @@ __host__ __device__ __forceinline__ int n_values(int S) { return 2 * S + 2 * (S 
 template <bool ZSTEP> struct StepLoad { using type = RPrimeLoad; };
 template <> struct StepLoad<true> { using type = FieldLoad; };
 
-template <int R, typename LT, bool ZSTEP>
+template <int R, typename LT, bool ZSTEP, bool HALO>
 __global__ void __launch_bounds__(kThreads)
 gcr_step_kernel(const float* __restrict__ rre, const float* __restrict__ rim,
                 const float* __restrict__ aps_re, const float* __restrict__ aps_im,
@@ -55,7 +65,7 @@ gcr_step_kernel(const float* __restrict__ rre, const float* __restrict__ rim,
                 const float* __restrict__ alpha, const float* __restrict__ k,
                 float* __restrict__ rp_re, float* __restrict__ rp_im, float* __restrict__ az_re,
                 float* __restrict__ az_im, double* __restrict__ partials, int S, int lim, int T,
-                int Z, int Y, int X, int anti_t) {
+                int Z, int Y, int X, int anti_t, const __grid_constant__ Halo<LT> h) {
   extern __shared__ double sm[];
   const Geom g(T, Z, Y, X);
   const int nv = n_values(S);
@@ -79,7 +89,7 @@ gcr_step_kernel(const float* __restrict__ rre, const float* __restrict__ rim,
   cf rp[4][3], az[4][3];
   float r2 = 0.f;
   if (live) {
-    dslash_site<R, LT>(L, ure, uim, g, n, anti_t != 0, az);
+    dslash_site<R, LT, false, HALO>(L, ure, uim, g, n, anti_t != 0, az, &h);
     const cf kk = {k[0], k[1]};
 #pragma unroll
     for (int s = 0; s < 4; ++s)
@@ -161,40 +171,42 @@ cudaError_t reduce_partials(const double* partials, int nblocks, int nv, float* 
   return cudaGetLastError();
 }
 
-template <int R, typename LT, bool ZSTEP>
+template <int R, typename LT, bool ZSTEP, bool HALO>
 static cudaError_t launch_step(const float* rre, const float* rim, const float* aps_re,
                                const float* aps_im, const float* zre, const float* zim,
                                const void* ure, const void* uim,
                                const float* alpha, const float* k, float* rp_re, float* rp_im,
                                float* az_re, float* az_im, double* partials, float* res, int S,
                                int lim, int T, int Z, int Y, int X, int anti_t,
-                               cudaStream_t stream) {
+                               const Halo<LT>& h, cudaStream_t stream) {
   const int n = T * Z * Y * X;
   const int nblocks = (n + kThreads - 1) / kThreads;
   const int nv = n_values(S);
   const size_t smem = sizeof(double) * kWarps * nv;
-  gcr_step_kernel<R, LT, ZSTEP><<<nblocks, kThreads, smem, stream>>>(
+  gcr_step_kernel<R, LT, ZSTEP, HALO><<<nblocks, kThreads, smem, stream>>>(
       rre, rim, aps_re, aps_im, zre, zim, static_cast<const LT*>(ure),
       static_cast<const LT*>(uim), alpha, k, rp_re, rp_im, az_re, az_im, partials, S, lim, T, Z,
-      Y, X, anti_t);
+      Y, X, anti_t, h);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   return reduce_partials(partials, nblocks, nv, res, stream);
 }
 
-// the four link variants of one step form: rows 3/2, f32/bf16 storage
-template <bool ZSTEP>
+// the four link variants of one step form: rows 3/2, f32/bf16 storage;
+// HALO reads the ghost table ``halo`` (common.cuh halo_from)
+template <bool ZSTEP, bool HALO = false>
 static cudaError_t dispatch_step(const float* rre, const float* rim, const float* aps_re,
                                  const float* aps_im, const float* zre, const float* zim,
                                  const void* ure, const void* uim, const float* alpha,
                                  const float* k, float* rp_re, float* rp_im, float* az_re,
                                  float* az_im, double* partials, float* res, int S, int lim,
                                  int T, int Zd, int Y, int X, int rows, int bf16, int anti_t,
-                                 cudaStream_t s) {
+                                 cudaStream_t s, const void* const* halo = nullptr) {
   if (lim < 1 || lim > S) return cudaErrorInvalidValue;
-#define MG_STEP(RR, LT)                                                                    \
-  launch_step<RR, LT, ZSTEP>(rre, rim, aps_re, aps_im, zre, zim, ure, uim, alpha, k, rp_re, \
-                             rp_im, az_re, az_im, partials, res, S, lim, T, Zd, Y, X, anti_t, s)
+#define MG_STEP(RR, LT)                                                                   \
+  launch_step<RR, LT, ZSTEP, HALO>(                                                        \
+      rre, rim, aps_re, aps_im, zre, zim, ure, uim, alpha, k, rp_re, rp_im, az_re, az_im,  \
+      partials, res, S, lim, T, Zd, Y, X, anti_t, HALO ? halo_from<LT>(halo) : Halo<LT>{}, s)
   if (rows == 3 && !bf16) return MG_STEP(3, float);
   if (rows == 2 && !bf16) return MG_STEP(2, float);
   if (rows == 3 && bf16) return MG_STEP(3, __nv_bfloat16);
@@ -227,4 +239,18 @@ extern "C" int mg_gcr_z_step(const float* rre, const float* rim, const float* ap
   return static_cast<int>(mg::dispatch_step<true>(
       rre, rim, aps_re, aps_im, zre, zim, ure, uim, nullptr, k, nullptr, nullptr, az_re, az_im,
       partials, res, S, lim, T, Z, Y, X, rows, bf16, anti_t, static_cast<cudaStream_t>(stream)));
+}
+
+// B15: K2 with the ghost table ``halo`` and no in-kernel boundary sign; res
+// holds this shard's partial dots
+extern "C" int mg_gcr_stream_step_dist(const float* rre, const float* rim, const float* aps_re,
+                                       const float* aps_im, const void* ure, const void* uim,
+                                       const float* alpha, const float* k, float* rp_re,
+                                       float* rp_im, float* az_re, float* az_im,
+                                       double* partials, float* res, int S, int lim, int T, int Z,
+                                       int Y, int X, int rows, int bf16, const void* const* halo,
+                                       void* stream) {
+  return static_cast<int>(mg::dispatch_step<false, true>(
+      rre, rim, aps_re, aps_im, nullptr, nullptr, ure, uim, alpha, k, rp_re, rp_im, az_re, az_im,
+      partials, res, S, lim, T, Z, Y, X, rows, bf16, 0, static_cast<cudaStream_t>(stream), halo));
 }

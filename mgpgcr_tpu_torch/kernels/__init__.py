@@ -4,7 +4,9 @@ the plain version for CPU tensors; ``<wrapper>.launches`` counts kernel
 launches only."""
 
 from mgpgcr_tpu_torch.kernels.dslash import dslash_apply, dslash_mu
+from mgpgcr_tpu_torch.kernels.dslash_dist import dslash_dist
 from mgpgcr_tpu_torch.kernels.gcr_dslash import gcr_stream_step, gcr_z_step
+from mgpgcr_tpu_torch.kernels.gcr_dslash_dist import gcr_stream_step_dist
 from mgpgcr_tpu_torch.kernels.gcr_kernels import (
     ap_update,
     basis_flush,
@@ -18,7 +20,8 @@ from mgpgcr_tpu_torch.kernels.transfer import prolong, restrict
 
 WRAPPERS = (
     dslash_apply, gcr_stream_step, ap_update, basis_flush, update_r, gcr_z_step, restrict,
-    prolong, update_xr, beta_dots, dir_update, stencil_spmv, dslash_mu,
+    prolong, update_xr, beta_dots, dir_update, stencil_spmv, dslash_mu, dslash_dist,
+    gcr_stream_step_dist,
 )
 
 

@@ -70,9 +70,15 @@ _SIGNATURES = {
     # blocks re/im, x re/im, y re/im, nb, K, ne, nd, d0, d1, d2, d3, bf16
     # blocks, stream
     "mg_stencil_spmv": [_P] * 6 + [_I] * 9 + [_P],
+    # psi re/im, links re/im, out re/im, k (nullable), T, Z, Y, X, rows,
+    # bf16 links, ghost table (12 pointers, common.cuh Halo), stream
+    "mg_dslash_dist": [_P] * 7 + [_I] * 6 + [_P, _P],
+    # as mg_gcr_stream_step without anti_t, plus the ghost table
+    "mg_gcr_stream_step_dist": [_P] * 14 + [_I] * 8 + [_P, _P],
 }
 
 _lock = threading.Lock()
+_count_lock = threading.Lock()
 _lib = None
 
 
@@ -135,6 +141,12 @@ def launch(name: str, *args) -> None:
     if rc != 0:
         msg = lib.mg_error_string(rc).decode()
         raise RuntimeError(f"{name}: CUDA error {rc} ({msg})")
+
+
+def count(wrapper) -> None:
+    """One more launch of ``wrapper``'s kernel; safe from several threads."""
+    with _count_lock:
+        wrapper.launches += 1
 
 
 def stream(t) -> int:

@@ -82,7 +82,7 @@ def dslash_apply(links, psi, mesh, k=None, anti_t: bool = False) -> cplx.CF:
             t, z, y, xx, links.shape[2], int(links.dtype == torch.bfloat16), int(anti_t),
             _lib.stream(psi.re),
         )
-    dslash_apply.launches += 1
+    _lib.count(dslash_apply)
     return out
 
 
@@ -121,7 +121,7 @@ def dslash_mu(links, psi, mesh, k=None) -> cplx.CF:
             None if kk is None else kk.data_ptr(), t, z, y, xx,
             int(links.dtype == torch.bfloat16), _lib.stream(psi.re),
         )
-    dslash_mu.launches += 1
+    _lib.count(dslash_mu)
     return out
 
 

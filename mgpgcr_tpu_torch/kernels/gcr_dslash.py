@@ -103,7 +103,7 @@ def gcr_stream_step(links, r, aps, alpha, k, lim: int, mesh, anti_t: bool = Fals
             partials.data_ptr(), res.data_ptr(), s_rows, lim, t, z, y, xx, links.shape[2],
             int(links.dtype == torch.bfloat16), int(anti_t), _lib.stream(r.re),
         )
-    gcr_stream_step.launches += 1
+    _lib.count(gcr_stream_step)
     return (rp, az, res[4 * s_rows + 2], *_split_res(res, s_rows))
 
 
@@ -142,7 +142,7 @@ def gcr_z_step(links, z, r, aps, k, lim: int, mesh, anti_t: bool = False):
             partials.data_ptr(), res.data_ptr(), s_rows, lim, t, zd, y, xx, links.shape[2],
             int(links.dtype == torch.bfloat16), int(anti_t), _lib.stream(r.re),
         )
-    gcr_z_step.launches += 1
+    _lib.count(gcr_z_step)
     return (az, *_split_res(res, s_rows))
 
 

@@ -62,7 +62,7 @@ def ap_update(az, aps, betas, slot: int, lim: int, r=None):
             aps.re.data_ptr(), aps.im.data_ptr(), bb.data_ptr(), partials.data_ptr(),
             res.data_ptr(), az.re.numel(), lim, slot, _lib.stream(az.re),
         )
-    ap_update.launches += 1
+    _lib.count(ap_update)
     if r is None:
         return aps, res[0]
     return aps, res[2], torch.view_as_complex(res[:2])
@@ -102,7 +102,7 @@ def basis_flush(x, basis, wx, wp):
             ox.re.data_ptr(), ox.im.data_ptr(), op.re.data_ptr(), op.im.data_ptr(),
             x.re.numel(), nb, _lib.stream(x.re),
         )
-    basis_flush.launches += 1
+    _lib.count(basis_flush)
     return ox, op
 
 
@@ -137,7 +137,7 @@ def update_r(r, aps, slot: int, alpha):
             aps.im.data_ptr(), ab.data_ptr(), partials.data_ptr(), rp.re.data_ptr(),
             rp.im.data_ptr(), r2.data_ptr(), r.re.numel(), slot, _lib.stream(r.re),
         )
-    update_r.launches += 1
+    _lib.count(update_r)
     return rp, r2
 
 
@@ -179,7 +179,7 @@ def update_xr(x, r, ps, aps, slot: int, alpha):
             rp.re.data_ptr(), rp.im.data_ptr(), r2.data_ptr(), x.re.numel(), slot,
             _lib.stream(x.re),
         )
-    update_xr.launches += 1
+    _lib.count(update_xr)
     return xp, rp, r2
 
 
@@ -215,7 +215,7 @@ def beta_dots(aps, az, lim: int | None = None):
             az.im.data_ptr(), partials.data_ptr(), out.data_ptr(), az.re.numel(), s_rows, lim,
             _lib.stream(az.re),
         )
-    beta_dots.launches += 1
+    _lib.count(beta_dots)
     return torch.view_as_complex(out.view(s_rows, 2))
 
 
@@ -265,7 +265,7 @@ def dir_update(z, az, r, ps, aps, betas, slot: int, lim: int | None = None):
             aps.re.data_ptr(), aps.im.data_ptr(), bb.data_ptr(), partials.data_ptr(),
             res.data_ptr(), z.re.numel(), lim, slot, _lib.stream(z.re),
         )
-    dir_update.launches += 1
+    _lib.count(dir_update)
     return ps, aps, res[2], torch.view_as_complex(res[:2])
 
 

@@ -75,7 +75,7 @@ def restrict(q_field, block_map: BlockMap, x):
             ne, t, z, y, xx, bt, bz, by, bx, int(q_field.dtype == torch.bfloat16),
             _lib.stream(x.re),
         )
-    restrict.launches += 1
+    _lib.count(restrict)
     return out
 
 
@@ -135,7 +135,7 @@ def prolong(q_field, block_map: BlockMap, xc, r=None, damping: float = 1.0):
             float(damping), ne, t, z, y, xx, bt, bz, by, bx,
             int(q_field.dtype == torch.bfloat16), _lib.stream(xc.re),
         )
-    prolong.launches += 1
+    _lib.count(prolong)
     return out
 
 

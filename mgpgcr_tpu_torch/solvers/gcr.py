@@ -26,6 +26,12 @@ form (``_gcr_solve_fused_cycles``) and the loop form on direction stacks
 as the JAX package chooses. ``gcr_solve_eager`` runs the generic loop or
 the fused loop form in their eager mode: no masking, convergence read
 every ``check_every`` iterations, the eager history layout.
+
+With a communicator ``comm`` (``parallel/comm.py``) the solve is one
+rank's part of a domain-decomposed solve (the JAX package's
+``axis_names`` inside ``shard_map``): fields and the operator are this
+rank's shards, and every reduction is summed over ranks (``_allsum``) at
+the points where the JAX package ``psum``s it, before any division.
 """
 
 from __future__ import annotations
@@ -37,6 +43,7 @@ import torch
 
 from mgpgcr_tpu_torch import cplx
 from mgpgcr_tpu_torch.kernels.gcr_dslash import gcr_stream_step, gcr_z_step
+from mgpgcr_tpu_torch.kernels.gcr_dslash_dist import gcr_stream_step_local
 from mgpgcr_tpu_torch.kernels.gcr_kernels import (
     ap_update,
     basis_flush,
@@ -48,6 +55,7 @@ from mgpgcr_tpu_torch.kernels.gcr_kernels import (
 from mgpgcr_tpu_torch.ops.base import LinearOperator
 from mgpgcr_tpu_torch.ops.dirac import DiracOperator
 from mgpgcr_tpu_torch.ops.dslash import CudaWilsonDirac
+from mgpgcr_tpu_torch.ops.dslash_dist import ShardLocalWilsonDirac
 from mgpgcr_tpu_torch.solvers.params import GCRParams
 from mgpgcr_tpu_torch.solvers.result import SolveResult
 
@@ -65,6 +73,12 @@ def _div_real(num, den, rdtype):
     """num / den for complex num and real den, guarded against 0 (the
     reference's multiply-by-reciprocal form)."""
     return num * (1.0 / torch.clamp(den, min=_tiny(rdtype)))
+
+
+def _allsum(v, comm):
+    """The sum over ranks of a per-shard partial; v itself without a
+    communicator."""
+    return v if comm is None else comm.allsum(v)
 
 
 def _running(r2, rhs_norm2, tol2: float, it, max_iter: int):
@@ -98,6 +112,7 @@ def gcr_solve(
     x0=None,
     fused: bool | None = None,
     left_precond: Optional[Preconditioner] = None,
+    comm=None,
 ) -> SolveResult:
     """Solve A x = rhs with flexible GCR; fields are ``cplx.CF``.
 
@@ -105,7 +120,9 @@ def gcr_solve(
     LEFT one (GCR then runs on L A and L rhs, and the history is measured
     in the L-preconditioned norm). ``fused`` (default ``params.fused``)
     runs the iteration through the hand-written kernels: the restart-cycle
-    form where ``params`` allow it, else the loop form."""
+    form where ``params`` allow it, else the loop form. ``comm`` makes the
+    solve one rank's part of a domain-decomposed solve (module docstring);
+    every rank must call it together."""
     if left_precond is not None:
         base_apply = a.apply if hasattr(a, "apply") else a
         a = lambda v: left_precond(base_apply(v))  # noqa: E731
@@ -113,14 +130,14 @@ def gcr_solve(
     if fused is None:
         fused = params.fused
     if not fused:
-        return _gcr_solve_generic(a, rhs, params, precond, x0)
+        return _gcr_solve_generic(a, rhs, params, precond, x0, comm=comm)
     unroll_ok = params.unroll == "cycles" or (params.unroll == "auto" and precond is None)
     if params.restart and params.restart <= 16 and not params.residual_refresh and unroll_ok:
-        return _gcr_solve_fused_cycles(a, rhs, params, precond, x0)
-    return _gcr_solve_fused(a, rhs, params, precond, x0)
+        return _gcr_solve_fused_cycles(a, rhs, params, precond, x0, comm)
+    return _gcr_solve_fused(a, rhs, params, precond, x0, comm=comm)
 
 
-def _gcr_solve_generic(a, rhs, params: GCRParams, precond, x0, eager: bool = False):
+def _gcr_solve_generic(a, rhs, params: GCRParams, precond, x0, eager: bool = False, comm=None):
     """The generic loop on stacks of ``storage_size`` directions (reference
     GCR.h:222-288). ``eager`` gives ``gcr_solve_eager``'s semantics: the
     host reads ||r||^2 every iteration (so no iteration is masked), the
@@ -135,7 +152,7 @@ def _gcr_solve_generic(a, rhs, params: GCRParams, precond, x0, eager: bool = Fal
 
     x = cplx.zeros_like(rhs) if x0 is None else x0
     r = rhs - apply_a(x) if x0 is not None else rhs
-    rhs_norm2 = cplx.abs2_sum(rhs)
+    rhs_norm2 = _allsum(cplx.abs2_sum(rhs), comm)
 
     z = precond(r) if precond is not None else r
     p = z
@@ -144,11 +161,11 @@ def _gcr_solve_generic(a, rhs, params: GCRParams, precond, x0, eager: bool = Fal
     ps[0] = p
     aps = cplx.stack_zeros(S, ap)
     aps[0] = ap
-    ap2 = cplx.abs2_sum(ap)
+    ap2 = _allsum(cplx.abs2_sum(ap), comm)
     ap_norms = torch.zeros(S, dtype=rdtype, device=dev)
     ap_norms[0] = ap2
 
-    r2 = cplx.abs2_sum(r)
+    r2 = _allsum(cplx.abs2_sum(r), comm)
     hist = torch.full((max_iter + 1,), float("nan"), dtype=rdtype, device=dev)
     it = torch.zeros((), dtype=torch.int64, device=dev)
     _record(hist, it, torch.ones((), dtype=torch.bool, device=dev), r2, rhs_norm2, rdtype)
@@ -166,12 +183,12 @@ def _gcr_solve_generic(a, rhs, params: GCRParams, precond, x0, eager: bool = Fal
         it = it + active
         count += 1
 
-        alpha = _div_real(cplx.vdot(ap, r), ap2, rdtype) * active.to(rdtype)
+        alpha = _div_real(_allsum(cplx.vdot(ap, r), comm), ap2, rdtype) * active.to(rdtype)
         x = x + p * alpha
         r = r - ap * alpha
         if refresh and n_body % refresh == 0:
             r = cplx.where(active, rhs - apply_a(x), r)
-        r2 = cplx.abs2_sum(r)
+        r2 = _allsum(cplx.abs2_sum(r), comm)
         _record(hist, it, active, r2, rhs_norm2, rdtype)
         if n_body % check_every == 0 or n_body == max_iter:
             going = bool(_running(r2, rhs_norm2, tol2, it, max_iter))
@@ -181,7 +198,7 @@ def _gcr_solve_generic(a, rhs, params: GCRParams, precond, x0, eager: bool = Fal
         z = precond(r) if precond is not None else r
         az = apply_a(z)
         # beta_j = <Ap_j, Az> / ||Ap_j||^2, zero where the slot is empty
-        raw = cplx.conj_contract_stack(aps, az)
+        raw = _allsum(cplx.conj_contract_stack(aps, az), comm)
         betas = torch.where(
             ap_norms > 0, _div_real(raw, ap_norms, rdtype), torch.zeros_like(raw)
         )
@@ -196,14 +213,14 @@ def _gcr_solve_generic(a, rhs, params: GCRParams, precond, x0, eager: bool = Fal
         slot = count % S  # ring slot (GCR.h:286-287)
         ps[slot] = p
         aps[slot] = ap
-        ap2 = cplx.abs2_sum(ap)
+        ap2 = _allsum(cplx.abs2_sum(ap), comm)
         ap_norms[slot] = ap2
 
     return _result(x, r2, rhs_norm2, tol2, it, hist[: n_body + 1] if eager else hist, rdtype)
 
 
 def _gcr_solve_fused(a, rhs, params: GCRParams, precond, x0, check_every: int = 0,
-                     eager: bool = False) -> SolveResult:
+                     eager: bool = False, comm=None) -> SolveResult:
     """The fused loop form on the direction stacks ps and aps (JAX
     ``_gcr_solve_fused``, reference loop GCR.h:222-288): truncation,
     residual_refresh, restart > 16, ``unroll="loop"``, and a preconditioner
@@ -239,7 +256,7 @@ def _gcr_solve_fused(a, rhs, params: GCRParams, precond, x0, check_every: int = 
 
     x = cplx.zeros_like(rhs) if x0 is None else x0
     r = rhs - apply_a(x) if x0 is not None else rhs
-    rhs_norm2 = cplx.abs2_sum(rhs)
+    rhs_norm2 = _allsum(cplx.abs2_sum(rhs), comm)
 
     z = precond(r) if precond is not None else r
     ap = apply_a(z)
@@ -247,12 +264,12 @@ def _gcr_solve_fused(a, rhs, params: GCRParams, precond, x0, check_every: int = 
     ps[0] = z
     aps = cplx.stack_zeros(S, ap)
     aps[0] = ap
-    ap2 = cplx.abs2_sum(ap)
+    ap2 = _allsum(cplx.abs2_sum(ap), comm)
     ap_norms = torch.zeros(S, dtype=rdtype, device=dev)
     ap_norms[0] = ap2
-    apr = cplx.vdot(ap, r)
+    apr = _allsum(cplx.vdot(ap, r), comm)
 
-    r2 = cplx.abs2_sum(r)
+    r2 = _allsum(cplx.abs2_sum(r), comm)
     hist = torch.full((max_iter + 1,), float("nan"), dtype=rdtype, device=dev)
     always = torch.ones((), dtype=torch.bool, device=dev)
     it = torch.zeros((), dtype=torch.int64, device=dev)
@@ -271,9 +288,10 @@ def _gcr_solve_fused(a, rhs, params: GCRParams, precond, x0, check_every: int = 
 
         alpha = _div_real(apr, ap2, rdtype) * active.to(rdtype)
         x, r, r2_new = update_xr(x, r, ps, aps, slot, alpha)
+        r2_new = _allsum(r2_new, comm)
         if params.residual_refresh and n_body % params.residual_refresh == 0:
             r = cplx.where(active, rhs - apply_a(x), r)
-            r2_new = cplx.abs2_sum(r)
+            r2_new = _allsum(cplx.abs2_sum(r), comm)
         r2 = torch.where(active, r2_new.to(rdtype), r2)
         _record(hist, it, active, r2, rhs_norm2, rdtype)
         if n_body % check_every == 0 or n_body == max_iter:
@@ -285,9 +303,11 @@ def _gcr_solve_fused(a, rhs, params: GCRParams, precond, x0, check_every: int = 
         lim = min(count, S)  # the live rows are the prefix [0:lim]
         if zstep is not None:
             az, raw, aprd = zstep(z, r, aps, lim)
+            aprd = _allsum(aprd, comm)
         else:
             az = apply_a(z)
             raw = beta_dots(aps, az, lim)
+        raw = _allsum(raw, comm)
         betas = torch.where(
             ap_norms > 0, _div_real(raw, ap_norms, rdtype), torch.zeros_like(raw)
         )
@@ -296,8 +316,11 @@ def _gcr_solve_fused(a, rhs, params: GCRParams, precond, x0, check_every: int = 
             ap_norms = torch.zeros_like(ap_norms)
         slot = count % S
         ps, aps, ap2, apr = dir_update(z, az, r if dot_r else None, ps, aps, betas, slot, lim)
+        ap2 = _allsum(ap2, comm)
         if zstep is not None:
             apr = aprd[S] - torch.sum(betas[:lim].conj() * aprd[:lim])
+        else:
+            apr = _allsum(apr, comm)
         ap_norms[slot] = ap2
 
     return _result(x, r2, rhs_norm2, tol2, it, hist[: n_body + 1] if eager else hist, rdtype)
@@ -307,10 +330,22 @@ def _mega_step_config(a, precond):
     """Step function ``(r, aps, alpha, lim) -> (r', az, r2, raw, apr)`` when
     the one-pass GCR step applies: unpreconditioned A = I - kD with
     ``CudaWilsonDirac`` on t-major links as D, single device (the JAX
-    package's ``_links_is_tmajor`` and tb/zb checks). None otherwise."""
+    package's ``_links_is_tmajor`` and tb/zb checks), or per shard with
+    ``ShardLocalWilsonDirac`` as D and an even local t extent of at least
+    2 (B15; its reductions are this shard's partials). None otherwise."""
     if precond is not None or not isinstance(a, DiracOperator):
         return None
     d = a.d
+    if isinstance(d, ShardLocalWilsonDirac):
+        t_loc = d.local_mesh.spacetime_dims[0]
+        if t_loc < 2 or t_loc % 2:
+            return None
+
+        def step_dist(r, aps, alpha, lim):
+            return gcr_stream_step_local(d.links, d.ghost_links, r, aps, alpha, a.k, lim,
+                                         d.local_mesh, d.comm, d.axis_t, d.axis_z, d.anti_t)
+
+        return step_dist
     if not isinstance(d, CudaWilsonDirac) or not d.t_major or d.mesh.spacetime_dims[0] < 2:
         return None
 
@@ -339,7 +374,7 @@ def _z_step_config(a):
     return zstep
 
 
-def _gcr_solve_fused_cycles(a, rhs, params: GCRParams, precond, x0) -> SolveResult:
+def _gcr_solve_fused_cycles(a, rhs, params: GCRParams, precond, x0, comm=None) -> SolveResult:
     """Restart-cycle fused GCR in the z-basis representation.
 
     The search directions p_j are never materialised: only A p_j lives in
@@ -367,18 +402,18 @@ def _gcr_solve_fused_cycles(a, rhs, params: GCRParams, precond, x0) -> SolveResu
 
     x = cplx.zeros_like(rhs) if x0 is None else x0
     r = rhs - apply_a(x) if x0 is not None else rhs
-    rhs_norm2 = cplx.abs2_sum(rhs)
+    rhs_norm2 = _allsum(cplx.abs2_sum(rhs), comm)
 
     p0 = precond(r) if precond is not None else r
     ap = apply_a(p0)
     aps = cplx.stack_zeros(S, ap)
     aps[0] = ap
-    ap2 = cplx.abs2_sum(ap)
+    ap2 = _allsum(cplx.abs2_sum(ap), comm)
     ap_norms = torch.zeros(S, dtype=rdtype, device=dev)
     ap_norms[0] = ap2
-    apr = cplx.vdot(ap, r)
+    apr = _allsum(cplx.vdot(ap, r), comm)
 
-    r2 = cplx.abs2_sum(r)
+    r2 = _allsum(cplx.abs2_sum(r), comm)
     hist = torch.full((max_iter + 1,), float("nan"), dtype=rdtype, device=dev)
     it = torch.zeros((), dtype=torch.int64, device=dev)
     _record(hist, it, torch.ones((), dtype=torch.bool, device=dev), r2, rhs_norm2, rdtype)
@@ -398,17 +433,20 @@ def _gcr_solve_fused_cycles(a, rhs, params: GCRParams, precond, x0) -> SolveResu
 
             if mega is not None:
                 r, az, r2, raw, aprd = mega(r, aps, alpha, j + 1)
+                raw, aprd = _allsum(raw, comm), _allsum(aprd, comm)
                 z = r
             else:
                 r, r2 = update_r(r, aps, j, alpha)
+            r2 = _allsum(r2, comm)
             _record(hist, it, active, r2, rhs_norm2, rdtype)
             if mega is None:
                 z = precond(r) if precond is not None else r
                 if zstep is not None:
                     az, raw, aprd = zstep(z, r, aps, j + 1)
+                    raw, aprd = _allsum(raw, comm), _allsum(aprd, comm)
                 else:
                     az = apply_a(z)
-                    raw = beta_dots(aps, az, j + 1)
+                    raw = _allsum(beta_dots(aps, az, j + 1), comm)
             betas = torch.where(
                 ap_norms > 0, _div_real(raw, ap_norms, rdtype), torch.zeros_like(raw)
             )
@@ -426,6 +464,8 @@ def _gcr_solve_fused_cycles(a, rhs, params: GCRParams, precond, x0) -> SolveResu
                 aps, ap2 = ap_update(az, aps, betas, slot, j + 1)
             else:
                 aps, ap2, apr = ap_update(az, aps, betas, slot, j + 1, r=r)
+                apr = _allsum(apr, comm)
+            ap2 = _allsum(ap2, comm)
             ap_norms[slot] = ap2
 
         # x += sum_j alpha_j p_j and p0' = p_new, in one pass over the basis

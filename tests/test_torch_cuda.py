@@ -328,3 +328,81 @@ def test_mu_major_and_stencil_solves(dev):
     rr = b - a.apply(res.x)
     assert res.converged and float(torch.sqrt(cplx.abs2_sum(rr) / cplx.abs2_sum(b))) < 2e-6
     assert stencil_spmv.launches > before and mgp.coarse_precond is not None
+
+
+# the ghost-plane kernels on (t, z) grids of ThreadComm ranks sharing the
+# card: a ragged shard (T_l = 1 and odd extents), 8^4 on 2 x 2, t split
+# four ways with z wrapped in the kernel, and one rank (nt = 1: the t
+# ghosts are the shard's own signed wrap planes)
+DIST_CASES = [((2, 6, 3, 10), (2, 2)), ((8, 8, 8, 8), (2, 2)), ((8, 4, 4, 4), (4, 1)),
+              ((8, 8, 8, 8), (4, 1)), ((4, 6, 4, 4), (1, 1))]
+
+
+@pytest.mark.parametrize("dims,sizes", DIST_CASES, ids=lambda v: "x".join(map(str, v)))
+@pytest.mark.parametrize("rows,ldt", [(2, torch.float32), (3, torch.bfloat16)])
+def test_dist_kernels(dev, dims, sizes, rows, ldt):
+    """B14 and B15 on every rank against their plain versions, with the
+    ghosts received from the real neighbours (alpha != 0)."""
+    from mgpgcr_tpu_torch import ShardLocalWilsonDirac, make_shard_grid, run_spmd, shard_field
+    from mgpgcr_tpu_torch.kernels.dslash_dist import dslash_dist, dslash_dist_plain, psi_ghosts
+    from mgpgcr_tpu_torch.kernels.gcr_dslash_dist import (
+        gcr_stream_step_dist,
+        gcr_stream_step_dist_plain,
+        step_ghosts,
+    )
+
+    S = 3
+    mesh = LatticeMesh((*dims, 4, 3))
+    canon = wilson.random_links_np(1, mesh)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    shape = (4, 3, dims[0], dims[1], dims[2] * dims[3])
+    psi = cplx.random(gen, shape, torch.float32, dev)
+    aps = cplx.random(gen, (S,) + shape, torch.float32, dev)
+    k = torch.tensor(0.13 - 0.02j, dtype=torch.complex64, device=dev)
+    alpha = torch.tensor(0.4 + 0.1j, dtype=torch.complex64, device=dev)
+    grid = make_shard_grid(sizes, ("t", "z"), device=dev)
+
+    def rank(comm):
+        d = ShardLocalWilsonDirac.build(canon, mesh, comm, "t", "z", compress=rows == 2,
+                                        antiperiodic_t=True, link_dtype=ldt)
+        x = shard_field(psi, grid, comm.rank, "t", "z")
+        ap = shard_field(aps, grid, comm.rank, "t", "z")
+        g = psi_ghosts(x, comm, "t", "z", True, d.ghost_links)
+        for kk in (None, k):
+            _close(dslash_dist(d.links, x, d.local_mesh, g, kk),
+                   dslash_dist_plain(d.links, x, d.local_mesh, g, kk))
+        for lim in (1, S):
+            gs = step_ghosts(x, ap, alpha, lim, comm, "t", "z", True, d.ghost_links)
+            got = gcr_stream_step_dist(d.links, x, ap, alpha, k, lim, d.local_mesh, gs)
+            want = gcr_stream_step_dist_plain(d.links, x, ap, alpha, k, lim, d.local_mesh, gs)
+            for gg, ww in zip(got, want):
+                _close(gg, ww)
+        torch.cuda.synchronize()
+
+    before = dslash_dist.launches
+    run_spmd(grid, rank)
+    assert dslash_dist.launches == before + 2 * grid.size
+
+
+def test_dist_solve(dev):
+    """The domain-decomposed fused restart-5 solve at 8^4 on a 2 x 2 grid of
+    ThreadComm ranks against the single-device fused solve: B15 launched,
+    K1 and K2 not."""
+    from mgpgcr_tpu_torch import gcr_solve_grid, kernels, make_shard_grid
+
+    mesh = LatticeMesh((8, 8, 8, 8, 4, 3))
+    canon = wilson.random_links_np(3, mesh)
+    d = CudaWilsonDirac.build(canon, mesh, compress=True, antiperiodic_t=True, device=dev)
+    a = DiracOperator(d, 0.12)
+    b = cplx.random(torch.Generator(device=dev).manual_seed(5), d.field_shape, device=dev)
+    params = GCRParams(tol=1e-6, max_iter=200, restart=5, fused=True)
+    ref = gcr_solve(a, b, params)
+    kernels.reset_launches()
+    res = gcr_solve_grid(canon, mesh, 0.12, b, params, make_shard_grid((2, 2), device=dev),
+                         "t", "z", compress=True, antiperiodic_t=True)
+    counts = kernels.launch_counts()
+    rr = b - a.apply(res.x)
+    assert res.converged and abs(res.n_iters - ref.n_iters) <= 1
+    assert float(torch.sqrt(cplx.abs2_sum(rr) / cplx.abs2_sum(b))) < 2e-6
+    assert counts["gcr_stream_step_dist"] > 0 and counts["dslash_dist"] > 0
+    assert counts["gcr_stream_step"] == 0 and counts["dslash_apply"] == 0

@@ -166,7 +166,12 @@ def test_port_imports_no_jax():
         "mgpgcr_tpu_torch.solvers.gcr, mgpgcr_tpu_torch.solvers.mg, "
         "mgpgcr_tpu_torch.solvers.power, mgpgcr_tpu_torch.ops.dense, "
         "mgpgcr_tpu_torch.kernels.spmv, mgpgcr_tpu_torch.ops.blockstencil, "
-        "mgpgcr_tpu_torch.ops.bsr, mgpgcr_tpu_torch.ops.wilson; "
+        "mgpgcr_tpu_torch.ops.bsr, mgpgcr_tpu_torch.ops.wilson, "
+        "mgpgcr_tpu_torch.parallel, mgpgcr_tpu_torch.parallel.comm, "
+        "mgpgcr_tpu_torch.parallel.dist, mgpgcr_tpu_torch.parallel.halo, "
+        "mgpgcr_tpu_torch.parallel.mesh, mgpgcr_tpu_torch.parallel.wilson, "
+        "mgpgcr_tpu_torch.kernels.dslash_dist, mgpgcr_tpu_torch.kernels.gcr_dslash_dist, "
+        "mgpgcr_tpu_torch.ops.dslash_dist, mgpgcr_tpu_torch.solvers.gcr_dist; "
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m == 'mgpgcr_tpu' or m.startswith('mgpgcr_tpu.')]; "
         "assert not bad, bad"
