@@ -22,13 +22,19 @@ group.
 Phases, each printed as one JSON line with its wall seconds:
   device    the card's name and power limit (nvidia-smi);
   build     the one nvcc call that builds csrc/*.cu;
+  registers the registers, spill bytes and shared memory of every
+            kernel instance (the step template's K2, B9 and B15 among
+            them), from the build's -Xptxas -v report;
   oracle    the Dslash kernel against the numpy oracle on a 4^4 lattice;
   parity    every kernel against its plain PyTorch version at 32^4 (and
             B12 at the coarse grids of the MG paths);
   timing    CUDA-event times of each kernel, its plain version, its bound,
             and one PyTorch call computing the same function where there is
             one (an einsum or a matrix product for K3, K4, B2, B3, B6, B7,
-            B10, B11 and B12, each checked against the plain version);
+            B10, B11 and B12, each checked against the plain version); for
+            K1, K2, B9, B12 (every shape) and B13 also the time with the
+            host out of the window (graph_ms: the wrapper calls captured in
+            a CUDA graph and replayed), beside the wrapper's event time;
   solve     the plain path: both solve forms (two runs each, in turns),
             iteration counts, ms per iteration, the independent f64
             residual, launch counts;
@@ -52,8 +58,8 @@ Phases, each printed as one JSON line with its wall seconds:
             one-rank grid (the shard shapes of the dist solves), against
             their plain versions and, gathered, against K1 and K2; the host
             time of one exchange on each grid; their times (over short and
-            long windows, in turns) and bounds on a 16x16x32x32 shard of
-            the (2, 2) grid;
+            long windows, in turns, and in a CUDA graph) and bounds on a
+            16x16x32x32 shard of the (2, 2) grid;
   dist_solve  the plain cell's fused solve domain-decomposed over (t, z):
             (2, 2) and (4, 1) grids of ThreadComm ranks on the card, each
             timed four times in turns at interpreter switch intervals of
@@ -69,6 +75,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -134,6 +141,9 @@ DIST_LONG_CALLS = 400  # B14/B15 calls in the long timing window (each tens of u
 # interpreter switch intervals (s) of the thread grids' timed solves, in
 # turns: the default, 10x shorter, 10x longer, the default again
 SWITCH_INTERVALS = (0.005, 0.0005, 0.05, 0.005)
+# the kernels timed with the host out of the event window (graph_ms): ms
+# per call, by wrapper name, for the kernels line and the timing phases
+HOST_FREE: dict[str, float] = {}
 
 
 def emit(phase: str, t0: float, **kw) -> None:
@@ -191,6 +201,38 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
+def graph_ms(fn, calls: int = 1, launches: int = 20, replays: int = 10) -> float:
+    """Mean ms per kernel call of ``fn`` (which makes ``calls`` wrapper
+    calls) with the host out of the event window: ``launches`` calls of
+    ``fn`` captured in one CUDA graph after a warm-up, the graph replayed
+    once, then ``replays`` times between CUDA events. The wrappers' checks
+    and allocations run at capture only; the replays launch the kernels."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(launches):
+            fn()
+    graph.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    ms = start.elapsed_time(end) / (replays * launches * calls)
+    del graph
+    torch.cuda.empty_cache()
+    return ms
+
+
 def host_ms(fn, reps: int = 5) -> float:
     """Mean ms per call of ``fn`` on the host clock, synchronised, after one
     warm-up call: for pieces that wait on the host themselves."""
@@ -208,6 +250,55 @@ def host_ms(fn, reps: int = 5) -> float:
 def bound(nbytes: float, flops: float) -> tuple[float, str]:
     tb, tf = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS
     return 1e3 * max(tb, tf), ("bytes" if tb >= tf else "operations")
+
+
+def strip_params(name: str) -> str:
+    """A demangled function name without its parameter list (the first "("
+    outside the template arguments)."""
+    depth = 0
+    for i, ch in enumerate(name):
+        depth += (ch == "<") - (ch == ">")
+        if ch == "(" and depth == 0:
+            return name[:i]
+    return name
+
+
+def ptxas_report(text: str) -> list[dict]:
+    """Registers, spill bytes and shared memory of each kernel, from nvcc's
+    ``-Xptxas -v`` messages, names demangled where the toolkit's demangler
+    is found."""
+    import shutil
+
+    entries, cur = [], None
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            cur = {"mangled": m.group(1)}
+            entries.append(cur)
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            cur["spill_stores"], cur["spill_loads"] = int(m.group(1)), int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+            sm = re.search(r"(\d+) bytes smem", line)
+            cur["smem_bytes"] = int(sm.group(1)) if sm else 0
+    tool = shutil.which("cu++filt") or shutil.which("c++filt")
+    if tool is None and Path("/usr/local/cuda/bin/cu++filt").exists():
+        tool = "/usr/local/cuda/bin/cu++filt"
+    if tool and entries:
+        out = subprocess.run([tool], input="\n".join(e["mangled"] for e in entries),
+                             capture_output=True, text=True).stdout.splitlines()
+        if len(out) == len(entries):
+            for e, name in zip(entries, out):
+                e["name"] = strip_params(name).replace("mg::", "")
+    for e in entries:
+        e.setdefault("name", e["mangled"])
+        del e["mangled"]
+    return entries
 
 
 def profile_solve(a, b, params, card: str, precond=None, label: str = "profile") -> None:
@@ -321,6 +412,7 @@ def mg_kernel_timing(mesh, variants, inp, S: int, table: dict) -> dict:
             fn(links, z, r, aps, kt, lim, mesh, anti_t=True)
 
     ms = cuda_ms(lambda: zsteps(gcr_z_step, lt)) / S
+    HOST_FREE["gcr_z_step"] = graph_ms(lambda: zsteps(gcr_z_step, lt), calls=S)
     pms = cuda_ms(lambda: zsteps(gcr_z_step_plain, lt), reps=3, warmup=1) / S
     extra = {"gcr_z_step_bf16_2row_ms": cuda_ms(lambda: zsteps(gcr_z_step,
                                                                variants[(2, "bf16")])) / S}
@@ -647,6 +739,8 @@ def new_kernel_timing(mesh, inp, psi, kt, table: dict) -> dict:
         ne = blocks.shape[-1]
         for bname, bl in (("f32", blocks), ("bf16", blocks.astype(torch.bfloat16))):
             ms = cuda_ms(lambda: stencil_spmv(bl, x, dims), reps=50)
+            gms = graph_ms(lambda: stencil_spmv(bl, x, dims), launches=50)
+            extra[f"stencil_spmv_{name}_{bname}_graph_ms"] = gms
             nbytes, flops = spmv_cost(dims, ne, bl.re.element_size())
             if name == "record" and bname == "f32":
                 pms = cuda_ms(lambda: stencil_spmv_plain(bl, x, dims), reps=5, warmup=1)
@@ -662,6 +756,7 @@ def new_kernel_timing(mesh, inp, psi, kt, table: dict) -> dict:
                       "stencil_spmv's block-ELL einsum yardstick")
                 del bc, xg, lib
                 table["stencil_spmv"] = (ms, pms, *bound(nbytes, flops), lms, nbytes)
+                HOST_FREE["stencil_spmv"] = gms
             else:
                 extra[f"stencil_spmv_{name}_{bname}_ms"] = ms
                 extra[f"stencil_spmv_{name}_{bname}_bound_ms"] = bound(nbytes, flops)[0]
@@ -669,6 +764,7 @@ def new_kernel_timing(mesh, inp, psi, kt, table: dict) -> dict:
     n_sites = mesh.n_sites
     links = inp["mu"].links
     ms = cuda_ms(lambda: dslash_mu(links, psi, mesh, kt))
+    HOST_FREE["dslash_mu"] = graph_ms(lambda: dslash_mu(links, psi, mesh, kt))
     pms = cuda_ms(lambda: dslash_mu_plain(links, psi, mesh, kt), reps=5, warmup=1)
     nbytes = n_sites * (LINK_B[(3, "f32")] + 2 * FIELD_B)
     table["dslash_mu"] = (ms, pms, *bound(nbytes, n_sites * (DSLASH_FLOPS_PER_SITE + K_FLOPS)),
@@ -1249,6 +1345,7 @@ def dist_kernel_phase(canon, mesh, dev, card: str, table: dict) -> list:
         return (w[1] + w[2]) / 2
 
     ms = in_turns("dslash_dist", lambda: dslash_dist(d.links, x, lm, g, kt), 1)
+    HOST_FREE["dslash_dist"] = graph_ms(lambda: dslash_dist(d.links, x, lm, g, kt), launches=50)
     pms = cuda_ms(lambda: dslash_dist_plain(d.links, x, lm, g, kt), reps=5, warmup=1)
     table["dslash_dist"] = (ms, pms, *bound(b14_bytes, b14_flops), None, b14_bytes)
     rl, al, steps = r0["r"], r0["aps"], r0["steps"]
@@ -1258,6 +1355,7 @@ def dist_kernel_phase(canon, mesh, dev, card: str, table: dict) -> list:
             fn(d.links, rl, al, alpha, kt, lim, lm, steps[lim])
 
     ms = in_turns("gcr_stream_step_dist", lambda: cycle(gcr_stream_step_dist), S)
+    HOST_FREE["gcr_stream_step_dist"] = graph_ms(lambda: cycle(gcr_stream_step_dist), calls=S)
     pms = cuda_ms(lambda: cycle(gcr_stream_step_dist_plain), reps=3, warmup=1) / S
     b15_bytes = sum(n_loc * (link_b + (3 + lim) * FIELD_B) for lim in range(1, S + 1)) / S \
         + ghost_b
@@ -1272,8 +1370,8 @@ def dist_kernel_phase(canon, mesh, dev, card: str, table: dict) -> list:
     emit("dist_kernels", t1, card=card, timing_grid=list(DIST_SHARD), timing_shard=list(lm.dims),
          cases=len(errs), field_tol=FIELD_TOL, dot_tol=DOT_TOL, worst_rel=worst,
          ghost_bytes=ghost_b, grids=per_grid, windows=windows,
-         kernels={k: {"ms": table[k][0], "plain_ms": table[k][1], "bound_ms": table[k][2],
-                      "bound_by": table[k][3], "bytes": table[k][5]}
+         kernels={k: {"ms": table[k][0], "graph_ms": HOST_FREE[k], "plain_ms": table[k][1],
+                      "bound_ms": table[k][2], "bound_by": table[k][3], "bytes": table[k][5]}
                   for k in ("dslash_dist", "gcr_stream_step_dist")})
     return errs
 
@@ -1436,8 +1534,8 @@ def main() -> int:
     path, ptxas = _lib.build_library(verbose=True)
     _lib.library()
     print(ptxas, file=sys.stderr)
-    emit("build", t1, library=str(path.relative_to(ROOT)),
-         spills=[ln.strip() for ln in ptxas.splitlines() if "spill" in ln and " 0 bytes spill" not in ln])
+    emit("build", t1, library=str(path.relative_to(ROOT)))
+    emit("registers", t1, kernels=ptxas_report(ptxas))
 
     # ---- oracle: a small lattice against the numpy oracle ----------------
     t1 = time.perf_counter()
@@ -1550,6 +1648,7 @@ def main() -> int:
     d_flops = n_sites * (DSLASH_FLOPS_PER_SITE + RECON_FLOPS + K_FLOPS)
     table = {}
     ms = cuda_ms(lambda: dslash_apply(main_links, psi, mesh, kt, True))
+    HOST_FREE["dslash_apply"] = graph_ms(lambda: dslash_apply(main_links, psi, mesh, kt, True))
     pms = cuda_ms(lambda: dslash_plain(main_links, psi, mesh, kt, True), reps=5, warmup=1)
     table["dslash_apply"] = (ms, pms, *bound(d_bytes, d_flops), None, d_bytes)
 
@@ -1559,6 +1658,8 @@ def main() -> int:
 
     ms = cuda_ms(lambda: cycle(lambda lim: gcr_stream_step(
         main_links, r, aps, alpha, kt, lim, mesh, anti_t=True))) / S
+    HOST_FREE["gcr_stream_step"] = graph_ms(lambda: cycle(lambda lim: gcr_stream_step(
+        main_links, r, aps, alpha, kt, lim, mesh, anti_t=True)), calls=S, launches=8)
     pms = cuda_ms(lambda: cycle(lambda lim: gcr_stream_step_plain(
         main_links, r, aps, alpha, kt, lim, mesh, anti_t=True)), reps=3, warmup=1) / S
     # per call, averaged over one cycle's lim = 1..S
@@ -1605,8 +1706,9 @@ def main() -> int:
     extra.update(new_kernel_timing(mesh, new_inputs, psi, kt, table))
     torch.cuda.synchronize()
     emit("timing", t1, card=card, dslash_variants_ms=variant_ms, **extra,
-         kernels={k: {"ms": v[0], "plain_ms": v[1], "bound_ms": v[2], "bound_by": v[3],
-                      "library_ms": v[4], "bytes": v[5]} for k, v in table.items()},
+         kernels={k: {"ms": v[0], "graph_ms": HOST_FREE.get(k), "plain_ms": v[1],
+                      "bound_ms": v[2], "bound_by": v[3], "library_ms": v[4], "bytes": v[5]}
+                  for k, v in table.items()},
          variants=kernel_variants)
     del aps, r, psi, variants, mg_inputs, loop_inputs, new_inputs, basis, basis_all
 
@@ -1704,6 +1806,8 @@ def main() -> int:
         row = {"name": short, "route": "cuda", "source": f"mgpgcr_tpu_torch/{source}",
                "replaces": replaces, "launches": launches, "max_abs_err": err,
                "ms": ms, "plain_ms": pms, "bound_ms": bms, "bound_by": by, "library_ms": lms}
+        if kname in HOST_FREE:
+            row["graph_ms"] = HOST_FREE[kname]
         if kname in kernel_variants:
             row["variants"] = kernel_variants[kname]
         rows.append(row)

@@ -41,10 +41,48 @@
 // the solver sums them over ranks. Bound: bytes, K2's plus the ghosts read
 // once.
 //
-// Dot products: f32 within a thread, f64 from the warp shuffle on, one
-// partial per block; reduce_partials adds the partials in block order, so
-// results are deterministic. alpha and k are read from device memory, so
-// no iteration waits on the host.
+// What bounds the three on an H100: bytes (above), against a stencil whose
+// 8 neighbour gathers and, for K2, their r' recomputation go through L1/L2.
+// What held the first design back: one thread per site at 146-152
+// registers, so one 256-thread block of 8 warps per SM: too few loads in
+// flight for HBM, and on B15's shard 1024 blocks ran as 7.8 waves. After
+// the stencil, each of the 4 lim + 3 dot values went through its own f64
+// warp-shuffle chain (block_put) inside the loop over the directions, so
+// the next direction's loads waited behind shuffles; and the block
+// partials were laid out block-major, so the cross-block pass read them at
+// a stride of 4 S + 3 doubles.
+//
+// This design keeps one thread per site for the stencil and remaps the
+// rest of the work:
+// - __launch_bounds__(256, 2): at most 128 registers, two resident blocks
+//   (16 warps) per SM, so twice the bytes in flight and half the waves.
+//   The launcher hands K2 the aps[lim-1] slot as a kernel argument, so no
+//   pointer is formed and held in registers for it. At this cap ptxas may
+//   still spill a few bytes of addresses in some instances (its -Xptxas -v
+//   report; chip_smoke.py prints it).
+// - The dots are staged, not shuffled: each lane writes its per-site
+//   values into its warp's tile in shared memory (16 values x 32 lanes,
+//   padded against bank conflicts) as soon as they are formed, and when 16
+//   are staged the warp reduces them in one batched pass in which lane v
+//   adds value v's entries (two lanes a value, 16 entries each); the loop
+//   over directions (unrolled by two for K2 and B15) starts its loads back
+//   to back. The warps' sums are added per block and written value-major
+//   (partials[i * blocks + b]), and the cross-block pass reads each value's
+//   partials contiguously.
+// - The r' recomputation at the neighbours (RPrimeLoad) stays: it costs L2
+//   reads, not DRAM bytes. A separate r' pass would add a DRAM round trip
+//   of r' (96 B a site) and a launch; staging r' of the block's own sites
+//   in shared memory (x and most y neighbours) and two threads a site (one
+//   half-spinor component each, 18 accumulators instead of 24) both
+//   measured slower on the card.
+//
+// Dot products, fixed order, no atomics: f32 over a site's 12 components
+// in (s, c) order within a thread; f64 from the warp on: in a warp, lanes
+// 0-15 and lanes 16-31 each in lane order, then the two halves added; the
+// block's 8 warp sums in warp order; reduce_partials adds the blocks'
+// partials in its fixed order (a strided sum per thread, then a tree).
+// alpha and k are read from device memory, so no iteration waits on the
+// host.
 #include "common.cuh"
 
 namespace mg {
@@ -52,12 +90,56 @@ namespace mg {
 // output layout of res (floats): raw (S complex), apr (S + 1 complex), r2
 __host__ __device__ __forceinline__ int n_values(int S) { return 2 * S + 2 * (S + 1) + 1; }
 
+// The staged values of a step come in the order raw_j, apr_j (re, im each)
+// for j < lim, then apr_S = <az, r'>, then r2: 4 lim + 3 values. The index
+// among them of output value i (n_values layout), or -1 for the rows from
+// lim on, which are zero.
+__device__ __forceinline__ int staged_index(int i, int S, int lim) {
+  if (i < 4 * S) {
+    const int apr = i >= 2 * S;
+    const int j = (i - apr * 2 * S) >> 1;
+    return j < lim ? 4 * j + 2 * apr + (i & 1) : -1;
+  }
+  return 4 * lim + (i - 4 * S);
+}
+
+constexpr int kChunk = 16;  // values staged per lane before a warp reduces them
+
+// One warp's staging tile and the warp's sums of the values reduced so far.
+// ``put`` is called by every lane of the warp with the same count.
+struct WarpStage {
+  float (*tile)[33];  // [kChunk][32 lanes + 1 pad]
+  double* sums;       // this warp's row of the block's sums
+  int fill, base;
+
+  __device__ __forceinline__ void put(float v) {
+    tile[fill][threadIdx.x & 31] = v;
+    if (++fill == kChunk) flush();
+  }
+
+  // value v's 32 lane entries in f64: lanes 0-15 and 16-31 in lane order,
+  // then the halves added
+  __device__ __forceinline__ void flush() {
+    __syncwarp();
+    const int lane = threadIdx.x & 31;
+    const int v = lane & (kChunk - 1), half = lane >> 4;
+    double s = 0.0;
+#pragma unroll
+    for (int c = 0; c < 16; ++c) s += static_cast<double>(tile[v][half * 16 + c]);
+    s += __shfl_down_sync(0xffffffffu, s, 16);
+    if (lane < fill) sums[base + lane] = s;
+    __syncwarp();
+    base += fill;
+    fill = 0;
+  }
+};
+
 // the stencil input: r' = r - alpha aps[lim-1] (K2) or z (B9)
 template <bool ZSTEP> struct StepLoad { using type = RPrimeLoad; };
 template <> struct StepLoad<true> { using type = FieldLoad; };
 
 template <int R, typename LT, bool ZSTEP, bool HALO>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 2)
 gcr_step_kernel(const float* __restrict__ rre, const float* __restrict__ rim,
                 const float* __restrict__ aps_re, const float* __restrict__ aps_im,
                 const float* __restrict__ zre, const float* __restrict__ zim,
@@ -66,31 +148,26 @@ gcr_step_kernel(const float* __restrict__ rre, const float* __restrict__ rim,
                 float* __restrict__ rp_re, float* __restrict__ rp_im, float* __restrict__ az_re,
                 float* __restrict__ az_im, double* __restrict__ partials, int S, int lim, int T,
                 int Z, int Y, int X, int anti_t, const __grid_constant__ Halo<LT> h) {
-  extern __shared__ double sm[];
+  __shared__ float tiles[kWarps][kChunk][33];
+  extern __shared__ double sums[];  // [kWarps][4 lim + 3]
   const Geom g(T, Z, Y, X);
-  const int nv = n_values(S);
-  for (int i = threadIdx.x; i < kWarps * nv; i += blockDim.x) sm[i] = 0.0;
-  __syncthreads();
-
-  const int n = blockIdx.x * blockDim.x + threadIdx.x;
+  const int n = blockIdx.x * kThreads + threadIdx.x;
   const bool live = n < g.N;
-  const int M = 12 * g.N;  // one stack row
-  typename StepLoad<ZSTEP>::type L;
-  if constexpr (ZSTEP) {
-    L = FieldLoad{zre, zim, g.N};
-  } else {
-    const float* slot_re = aps_re + static_cast<long long>(lim - 1) * M;
-    const float* slot_im = aps_im + static_cast<long long>(lim - 1) * M;
-    L = RPrimeLoad{rre, rim, slot_re, slot_im, {alpha[0], alpha[1]}, g.N};
-  }
-  const FieldLoad Rd{rre, rim, g.N};
 
   // rp: the dots' second vector, r' (K2) or r (B9)
   cf rp[4][3], az[4][3];
   float r2 = 0.f;
   if (live) {
+    // the stencil input; for K2 the launcher points (zre, zim) at
+    // aps[lim-1], so that no pointer is formed here and kept live
+    typename StepLoad<ZSTEP>::type L;
+    if constexpr (ZSTEP)
+      L = FieldLoad{zre, zim, g.N};
+    else
+      L = RPrimeLoad{rre, rim, zre, zim, {alpha[0], alpha[1]}, g.N};
     dslash_site<R, LT, false, HALO>(L, ure, uim, g, n, anti_t != 0, az, &h);
     const cf kk = {k[0], k[1]};
+    const FieldLoad Rd{rre, rim, g.N};
 #pragma unroll
     for (int s = 0; s < 4; ++s)
 #pragma unroll
@@ -116,8 +193,12 @@ gcr_step_kernel(const float* __restrict__ rre, const float* __restrict__ rim,
       for (int c = 0; c < 3; ++c) rp[s][c] = az[s][c] = {0.f, 0.f};
   }
 
-  // dots of this site against each stored direction; every thread takes
-  // part in every shuffle, dead threads with zeros
+  // this site's dots against each stored direction, staged as they come;
+  // dead threads stage zeros
+  const int nvl = 4 * lim + 3;
+  WarpStage st{tiles[threadIdx.x >> 5], sums + (threadIdx.x >> 5) * nvl, 0, 0};
+  const int M = 12 * g.N;  // one stack row
+#pragma unroll(ZSTEP ? 1 : 2)  // the faster of the two on the card, for each form
   for (int j = 0; j < lim; ++j) {
     cf raw = {0.f, 0.f}, apr = {0.f, 0.f};
     if (live) {
@@ -132,30 +213,43 @@ gcr_step_kernel(const float* __restrict__ rre, const float* __restrict__ rim,
           apr = cadd(apr, cmulc(a, rp[s][c]));
         }
     }
-    block_put(sm, nv, 2 * j, raw.re);
-    block_put(sm, nv, 2 * j + 1, raw.im);
-    block_put(sm, nv, 2 * S + 2 * j, apr.re);
-    block_put(sm, nv, 2 * S + 2 * j + 1, apr.im);
+    st.put(raw.re);
+    st.put(raw.im);
+    st.put(apr.re);
+    st.put(apr.im);
   }
   cf zr = {0.f, 0.f};
 #pragma unroll
   for (int s = 0; s < 4; ++s)
 #pragma unroll
     for (int c = 0; c < 3; ++c) zr = cadd(zr, cmulc(az[s][c], rp[s][c]));
-  block_put(sm, nv, 4 * S, zr.re);
-  block_put(sm, nv, 4 * S + 1, zr.im);
-  block_put(sm, nv, 4 * S + 2, r2);
-  block_flush(sm, nv, partials);
+  st.put(zr.re);
+  st.put(zr.im);
+  st.put(r2);
+  if (st.fill) st.flush();
+
+  // the block's partials, value-major; zeros for the rows from lim on
+  __syncthreads();
+  const int nv = n_values(S);
+  for (int i = threadIdx.x; i < nv; i += kThreads) {
+    const int v = staged_index(i, S, lim);
+    double s = 0.0;
+    if (v >= 0)
+      for (int w = 0; w < kWarps; ++w) s += sums[w * nvl + v];
+    partials[static_cast<long long>(i) * gridDim.x + blockIdx.x] = s;
+  }
 }
 
+// value i's total over the blocks: element (b, i) of the partials lies at
+// b * bstride + i * vstride; one block per value, each thread a strided sum
+// over the blocks in order, then a tree over the threads
 __global__ void __launch_bounds__(kThreads)
-reduce_partials_kernel(const double* __restrict__ partials, int nblocks, int nv,
-                       float* __restrict__ res) {
+reduce_partials_kernel(const double* __restrict__ partials, int nblocks, long long bstride,
+                       long long vstride, float* __restrict__ res) {
   __shared__ double sm[kThreads];
   const int i = blockIdx.x;
   double s = 0.0;
-  for (int b = threadIdx.x; b < nblocks; b += blockDim.x)
-    s += partials[static_cast<long long>(b) * nv + i];
+  for (int b = threadIdx.x; b < nblocks; b += blockDim.x) s += partials[b * bstride + i * vstride];
   sm[threadIdx.x] = s;
   __syncthreads();
   for (int w = kThreads / 2; w > 0; w >>= 1) {
@@ -165,9 +259,10 @@ reduce_partials_kernel(const double* __restrict__ partials, int nblocks, int nv,
   if (threadIdx.x == 0) res[i] = static_cast<float>(sm[0]);
 }
 
+// block-major partials (partials[b * nv + i]), as block_flush writes them
 cudaError_t reduce_partials(const double* partials, int nblocks, int nv, float* res,
                             cudaStream_t stream) {
-  reduce_partials_kernel<<<nv, kThreads, 0, stream>>>(partials, nblocks, nv, res);
+  reduce_partials_kernel<<<nv, kThreads, 0, stream>>>(partials, nblocks, nv, 1, res);
   return cudaGetLastError();
 }
 
@@ -182,14 +277,20 @@ static cudaError_t launch_step(const float* rre, const float* rim, const float* 
   const int n = T * Z * Y * X;
   const int nblocks = (n + kThreads - 1) / kThreads;
   const int nv = n_values(S);
-  const size_t smem = sizeof(double) * kWarps * nv;
+  const size_t smem = sizeof(double) * kWarps * (4 * lim + 3);
+  if (!ZSTEP) {  // K2's stencil reads aps[lim-1] through z
+    zre = aps_re + static_cast<size_t>(lim - 1) * 12 * n;
+    zim = aps_im + static_cast<size_t>(lim - 1) * 12 * n;
+  }
   gcr_step_kernel<R, LT, ZSTEP, HALO><<<nblocks, kThreads, smem, stream>>>(
       rre, rim, aps_re, aps_im, zre, zim, static_cast<const LT*>(ure),
       static_cast<const LT*>(uim), alpha, k, rp_re, rp_im, az_re, az_im, partials, S, lim, T, Z,
       Y, X, anti_t, h);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  return reduce_partials(partials, nblocks, nv, res, stream);
+  // value-major partials
+  reduce_partials_kernel<<<nv, kThreads, 0, stream>>>(partials, nblocks, 1, nblocks, res);
+  return cudaGetLastError();
 }
 
 // the four link variants of one step form: rows 3/2, f32/bf16 storage;
@@ -217,7 +318,7 @@ static cudaError_t dispatch_step(const float* rre, const float* rim, const float
 
 }  // namespace mg
 
-// partials: (ceil(N / 256), n_values(S)) doubles; res: n_values(S) floats
+// partials: n_values(S) * ceil(N / 256) doubles; res: n_values(S) floats
 extern "C" int mg_gcr_stream_step(const float* rre, const float* rim, const float* aps_re,
                                   const float* aps_im, const void* ure, const void* uim,
                                   const float* alpha, const float* k, float* rp_re,

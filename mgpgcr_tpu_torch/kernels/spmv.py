@@ -87,8 +87,6 @@ def stencil_spmv(blocks: cplx.CF, x: cplx.CF, dims) -> cplx.CF:
     ne = blocks.shape[-1]
     if not 1 <= nd <= 4 or blocks.shape != (nb, 2 * nd + 1, ne, ne) or x.shape != (nb * ne,):
         raise ValueError(f"shapes blocks {blocks.shape}, x {x.shape} do not fit dims {dims}")
-    if 2 * 4 * (2 * nd + 1) * ne * 4 > 48 * 1024:
-        raise ValueError(f"ne = {ne}: the kernel's gathered x exceeds 48 KB of shared memory")
     _lib.check_cuda(blocks.re, blocks.im, dtypes=(blocks.dtype,))
     _lib.check_cuda(blocks.re, dtypes=(torch.float32, torch.bfloat16))
     _lib.check_cuda(x.re, x.im)

@@ -259,9 +259,22 @@ def test_loop_form_solves(dev):
     assert update_r.launches > before[2]
 
 
-# B12's grids: the three-level cell's coarse levels (ne 12 on 4^4 and 2^4
-# blocks, duplicate slots), a 1-d and a ragged one, ne past one warp
-SPMV_CASES = [((4, 4, 4, 4), 12), ((2, 2, 2, 2), 12), ((5,), 3), ((3, 1, 2), 40)]
+# B12's grids: the config of record's coarse level (8^4, ne 20), the
+# three-level cell's (ne 12 on 4^4 and 2^4 blocks, duplicate slots); nd 1
+# to 4, extents 1 and 2 (duplicate slots), ne 3, 6 and 40 (not multiples of
+# the 16-byte chunk, and past one warp of chunks), block-row counts that
+# are not multiples of a CTA's output entries
+SPMV_CASES = [((8, 8, 8, 8), 20), ((4, 4, 4, 4), 12), ((2, 2, 2, 2), 12), ((5,), 3),
+              ((7,), 6), ((3, 1, 2), 40), ((2, 5), 6), ((1, 3, 2), 3), ((3, 2, 1, 5), 20),
+              ((3, 5, 1), 12)]
+
+
+def _offset_copy(t, off: int = 1):
+    """A contiguous copy of ``t`` whose data starts ``off`` elements into its
+    storage, so that no load wider than one element is aligned."""
+    flat = torch.zeros(t.numel() + off, dtype=t.dtype, device=t.device)
+    flat[off:] = t.reshape(-1)
+    return flat[off:].view(t.shape)
 
 
 @pytest.mark.parametrize("dims,ne", SPMV_CASES, ids=lambda v: str(v))
@@ -270,14 +283,49 @@ def test_stencil_spmv_kernel(dev, dims, ne):
     nb = int(np.prod(dims))
     blocks = cplx.random(gen, (nb, 2 * len(dims) + 1, ne, ne), torch.float32, dev)
     x = cplx.random(gen, (nb * ne,), torch.float32, dev)
+    xo = cplx.CF(_offset_copy(x.re), _offset_copy(x.im))
     for bl in (blocks, blocks.astype(torch.bfloat16)):
-        before = stencil_spmv.launches
-        _close(stencil_spmv(bl, x, dims), stencil_spmv_plain(bl, x, dims))
-        assert stencil_spmv.launches == before + 1
+        want = stencil_spmv_plain(bl, x, dims)
+        blo = cplx.CF(_offset_copy(bl.re), _offset_copy(bl.im))
+        # aligned inputs take the widest loads; offset ones the scalar path
+        for b_in, x_in in ((bl, x), (blo, xo), (bl, xo)):
+            before = stencil_spmv.launches
+            _close(stencil_spmv(b_in, x_in, dims), want)
+            assert stencil_spmv.launches == before + 1
     with pytest.raises(ValueError):
         stencil_spmv(blocks, x.astype(torch.float64), dims)
     with pytest.raises(ValueError):
         stencil_spmv(blocks, x[: nb * ne - 1], dims)
+
+
+# the one-pass steps' link storage: rows 2 and 3, f32 and bf16
+STEP_LINKS = [(2, torch.float32), (3, torch.float32), (2, torch.bfloat16), (3, torch.bfloat16)]
+
+
+@pytest.mark.parametrize("dims", [(4, 4, 4, 4), (2, 6, 3, 10)], ids=lambda d: "x".join(map(str, d)))
+@pytest.mark.parametrize("S", [5, 20])
+@pytest.mark.parametrize("rows,ldt", STEP_LINKS, ids=lambda v: str(v))
+def test_gcr_step_kernels(dev, dims, S, rows, ldt):
+    """K2 and B9 at every lim from 1 to S (S = 20 stages more values than
+    one warp tile holds) against their plain versions; the rows from lim on
+    are zero."""
+    mesh, links, gen, shape = _setup(dims, dev, rows, ldt)
+    r = cplx.random(gen, shape, torch.float32, dev)
+    z = cplx.random(gen, shape, torch.float32, dev)
+    aps = cplx.random(gen, (S,) + shape, torch.float32, dev)
+    alpha = torch.tensor(0.4 + 0.1j, dtype=torch.complex64, device=dev)
+    k = torch.tensor(0.12 - 0.03j, dtype=torch.complex64, device=dev)
+    for lim in range(1, S + 1):
+        got = gcr_stream_step(links, r, aps, alpha, k, lim, mesh, anti_t=True)
+        want = gcr_stream_step_plain(links, r, aps, alpha, k, lim, mesh, anti_t=True)
+        for g, w in zip(got, want):
+            _close(g, w)
+        assert bool((got[3][lim:] == 0).all()) and bool((got[4][lim:S] == 0).all())
+        got = gcr_z_step(links, z, r, aps, k, lim, mesh, anti_t=True)
+        want = gcr_z_step_plain(links, z, r, aps, k, lim, mesh, anti_t=True)
+        for g, w in zip(got, want):
+            _close(g, w)
+        assert bool((got[1][lim:] == 0).all()) and bool((got[2][lim:S] == 0).all())
 
 
 @pytest.mark.parametrize("dims", LATTICES, ids=lambda d: "x".join(map(str, d)))
@@ -382,6 +430,49 @@ def test_dist_kernels(dev, dims, sizes, rows, ldt):
     before = dslash_dist.launches
     run_spmd(grid, rank)
     assert dslash_dist.launches == before + 2 * grid.size
+
+
+@pytest.mark.parametrize("S", [5, 20])
+@pytest.mark.parametrize("rows,ldt", STEP_LINKS, ids=lambda v: str(v))
+def test_dist_step_kernel(dev, S, rows, ldt):
+    """B15 at every lim from 1 to S on each rank of a (2, 2) grid over the
+    ragged 2x6x3x10 lattice (one t-plane a shard) against its plain
+    version, alpha != 0, with the ghosts received from the neighbours."""
+    from mgpgcr_tpu_torch import ShardLocalWilsonDirac, make_shard_grid, run_spmd, shard_field
+    from mgpgcr_tpu_torch.kernels.gcr_dslash_dist import (
+        gcr_stream_step_dist,
+        gcr_stream_step_dist_plain,
+        step_ghosts,
+    )
+
+    dims = (2, 6, 3, 10)
+    mesh = LatticeMesh((*dims, 4, 3))
+    canon = wilson.random_links_np(1, mesh)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    shape = (4, 3, dims[0], dims[1], dims[2] * dims[3])
+    r = cplx.random(gen, shape, torch.float32, dev)
+    aps = cplx.random(gen, (S,) + shape, torch.float32, dev)
+    k = torch.tensor(0.13 - 0.02j, dtype=torch.complex64, device=dev)
+    alpha = torch.tensor(-0.3 + 0.2j, dtype=torch.complex64, device=dev)
+    grid = make_shard_grid((2, 2), ("t", "z"), device=dev)
+
+    def rank(comm):
+        d = ShardLocalWilsonDirac.build(canon, mesh, comm, "t", "z", compress=rows == 2,
+                                        antiperiodic_t=True, link_dtype=ldt)
+        x = shard_field(r, grid, comm.rank, "t", "z")
+        ap = shard_field(aps, grid, comm.rank, "t", "z")
+        for lim in range(1, S + 1):
+            gs = step_ghosts(x, ap, alpha, lim, comm, "t", "z", True, d.ghost_links)
+            got = gcr_stream_step_dist(d.links, x, ap, alpha, k, lim, d.local_mesh, gs)
+            want = gcr_stream_step_dist_plain(d.links, x, ap, alpha, k, lim, d.local_mesh, gs)
+            for gg, ww in zip(got, want):
+                _close(gg, ww)
+            assert bool((got[3][lim:] == 0).all()) and bool((got[4][lim:S] == 0).all())
+        torch.cuda.synchronize()
+
+    before = gcr_stream_step_dist.launches
+    run_spmd(grid, rank)
+    assert gcr_stream_step_dist.launches == before + S * grid.size
 
 
 def test_dist_solve(dev):
