@@ -17,7 +17,9 @@ a three-level MG (the block-8 cell with block-stencil coarse operators on
 4^4 and 2^4 blocks), and the plain fused solve on mu-major 3-row links
 (``build(..., tb=2, zb=8)``); then the plain solve domain-decomposed over
 (t, z) shards, ranks as threads sharing the card and as a one-process NCCL
-group.
+group; then the seventh slice: mixed-precision refinement, low eigenpairs,
+the even-odd Schur solve (plain and with MG), the heat bath on the card and
+matrix ingestion.
 
 Phases, each printed as one JSON line with its wall seconds:
   device    the card's name and power limit (nvidia-smi);
@@ -65,9 +67,30 @@ Phases, each printed as one JSON line with its wall seconds:
             timed four times in turns at interpreter switch intervals of
             5, 0.5, 50 and 5 ms, and a world-size-1 NCCL group;
             iterations, host ms per iteration, launches, the independent
-            f64 residual of the gathered x.
-Then the kernel table, the card line and the result line. Any failed
-check raises, and the script exits non-zero. Run: ``python3 chip_smoke.py``
+            f64 residual of the gathered x;
+  refine    the plain cell as the inner solve of mixed-precision
+            refinement, the complex128 residual on the card, to 1e-10:
+            rounds, inner iterations, history, ms per round;
+  eigen     smallest_eigenpairs(n=4) of the plain operator: values,
+            residuals, orthonormality;
+  eo_solve  the plain cell through the even-odd Schur complement
+            (from_dirac on 3-row links): iterations against the full
+            solve's, ms per iteration, the host ms of one Schur apply, the
+            independent f64 residual of the reconstructed x;
+  eo_mg     setup_eo_mg (block 8, 6 null vectors, the half mesh) and the
+            MG-preconditioned Schur solve on the 16^4 field: setup seconds
+            by phase, outer iterations against the plain Schur solve's, ms,
+            residual, and the column assembly's time estimate at 32^4;
+  gauge     two heat-bath sweeps at 32^4 from a hot start, 20 at 8^4 from
+            a cold start (plaquette band), SU(3) errors, a solve on the
+            generated links;
+  ingest    the 8^4 field as a CSR matrix: parsed.txt (native, numpy) and
+            .npz round trips, Wilson detection, the routed operator and its
+            solve against the direct one, B12 on the ingested stencil.
+The parity phase also holds B2, B3, K3, K4 on half-size fields and B10,
+B11 on the half mesh's blocks; eo_mg and ingest add B10/B11 at their half
+mesh and B12 at the ingested stencil. Then the kernel table, the card
+line and the result line. Any failed check raises, and the script exits non-zero. Run: ``python3 chip_smoke.py``
 (``--profile`` adds a torch.profiler breakdown of the fused solves).
 """
 
@@ -144,6 +167,8 @@ SWITCH_INTERVALS = (0.005, 0.0005, 0.05, 0.005)
 # the kernels timed with the host out of the event window (graph_ms): ms
 # per call, by wrapper name, for the kernels line and the timing phases
 HOST_FREE: dict[str, float] = {}
+REFINE_TOL = 1e-10  # the refine phase's true complex128 relative residual
+PLAQ_B6, PLAQ_BAND = 0.5937, 0.05  # <P> at beta = 6.0 and tests/test_gauge.py's band
 
 
 def emit(phase: str, t0: float, **kw) -> None:
@@ -1496,6 +1521,510 @@ def dist_solve_phase(canon, mesh, dev, card: str, b, independent_relres, plain_i
     return all_counts
 
 
+def independent_residual(canon, mesh, b):
+    """The independent check of a solve: x -> ||b - A x|| / ||b|| in f64,
+    A = I - K D with the in-kernel anti-periodic sign on the canonical
+    links ``canon``, through K1's plain version on f64 links."""
+    import torch
+
+    from mgpgcr_tpu_torch import cplx, links_from_numpy
+    from mgpgcr_tpu_torch.kernels.dslash import dslash_plain
+
+    links64 = links_from_numpy(canon, mesh, b.device, link_dtype=torch.float64)
+    k64 = torch.tensor(K, dtype=torch.complex128, device=b.device)
+    b64 = b.astype(torch.float64)
+
+    def relres(x) -> float:
+        rr = b64 - dslash_plain(links64, x.astype(torch.float64), mesh, k64, anti_t=True)
+        return float(torch.sqrt(cplx.abs2_sum(rr) / cplx.abs2_sum(b64)))
+
+    return relres
+
+
+def algebra_parity(fshape, gen, note, S: int, tag: str) -> None:
+    """B2, B3, K3 (both forms) and K4 against their plain versions on fields
+    of ``fshape``, the shapes of the slice-7 solves (the Schur solves' half
+    fields, the ingested operator's 8^4 fields): field outputs against the
+    f32 plain versions, reductions against f64."""
+    import torch
+
+    from mgpgcr_tpu_torch import cplx
+    from mgpgcr_tpu_torch.kernels.gcr_kernels import (
+        ap_update, ap_update_plain, basis_flush, basis_flush_plain, beta_dots, beta_dots_plain,
+        update_r, update_r_plain,
+    )
+
+    dev = gen.device
+    r, az = (cplx.random(gen, fshape, torch.float32, dev) for _ in range(2))
+    aps = cplx.random(gen, (S,) + tuple(fshape), torch.float32, dev)
+    alpha = torch.tensor(0.3 - 0.2j, dtype=torch.complex64, device=dev)
+    betas = torch.complex(torch.rand(S, generator=gen, device=dev),
+                          torch.rand(S, generator=gen, device=dev)) - (0.5 + 0.5j)
+    r64, az64, aps64, b64 = f64(r), f64(az), f64(aps), f64(betas)
+    for slot in range(S):
+        got = update_r(r, aps, slot, alpha)
+        note("update_r", f"{tag}/r'/slot={slot}",
+             rel_err(got[0], update_r_plain(r, aps, slot, alpha)[0]), FIELD_TOL)
+        note("update_r", f"{tag}/r2/slot={slot}",
+             rel_err(got[1], update_r_plain(r64, aps64, slot, f64(alpha))[1]), DOT_TOL)
+    for lim in range(1, S + 1):
+        got = beta_dots(aps, az, lim)
+        note("beta_dots", f"{tag}/lim={lim}",
+             rel_err(got[:lim], beta_dots_plain(aps64, az64, lim)[:lim]), DOT_TOL)
+        slot = lim % S
+        for rr, rr64, form in ((None, None, "r=None"), (r, r64, "r")):
+            got = ap_update(az, aps.clone(), betas, slot, lim, r=rr)
+            pl = ap_update_plain(az, aps.clone(), betas, slot, lim, r=rr)
+            p64 = ap_update_plain(az64, aps64.clone(), b64, slot, lim, r=rr64)
+            what = f"{tag}/{form}/lim={lim}"
+            note("ap_update", f"ap/{what}", rel_err(got[0][slot], pl[0][slot]), FIELD_TOL)
+            note("ap_update", f"norm/{what}", rel_err(got[1], p64[1]), DOT_TOL)
+            if rr is not None:
+                note("ap_update", f"apr/{what}", rel_err(got[2], p64[2]), DOT_TOL)
+        basis = [aps[m] for m in range(lim)] + [r]
+        w = torch.complex(torch.rand(2, lim + 1, generator=gen, device=dev),
+                          torch.rand(2, lim + 1, generator=gen, device=dev))
+        got = basis_flush(az, basis, w[0], w[1])
+        ref = basis_flush_plain(az, basis, w[0], w[1])
+        note("basis_flush", f"{tag}/x/nb={lim + 1}", rel_err(got[0], ref[0]), FIELD_TOL)
+        note("basis_flush", f"{tag}/p0/nb={lim + 1}", rel_err(got[1], ref[1]), FIELD_TOL)
+
+
+def dslash_step_parity(links, mesh, gen, note, S: int, tag: str, anti_t: bool) -> None:
+    """K1 and K2 against their plain versions on ``links`` at ``mesh``: the
+    ingested operator's 3-row f32 links at 8^4."""
+    import torch
+
+    from mgpgcr_tpu_torch import cplx
+    from mgpgcr_tpu_torch.kernels.dslash import dslash_apply, dslash_plain
+    from mgpgcr_tpu_torch.kernels.gcr_dslash import gcr_stream_step, gcr_stream_step_plain
+
+    dev = links.device
+    t, z, y, xx = mesh.spacetime_dims
+    fshape = (4, 3, t, z, y * xx)
+    psi, r = (cplx.random(gen, fshape, torch.float32, dev) for _ in range(2))
+    aps = cplx.random(gen, (S,) + fshape, torch.float32, dev)
+    kt = torch.tensor(K, dtype=torch.complex64, device=dev)
+    alpha = torch.tensor(0.3 - 0.2j, dtype=torch.complex64, device=dev)
+    for kk in (None, kt):
+        note("dslash_apply", f"{tag}/k={kk is not None}",
+             rel_err(dslash_apply(links, psi, mesh, kk, anti_t),
+                     dslash_plain(links, psi, mesh, kk, anti_t)), FIELD_TOL)
+    r64, aps64 = f64(r), f64(aps)
+    for lim in range(1, S + 1):
+        out = gcr_stream_step(links, r, aps, alpha, kt, lim, mesh, anti_t=anti_t)
+        pl = gcr_stream_step_plain(links, r, aps, alpha, kt, lim, mesh, anti_t=anti_t)
+        p64 = gcr_stream_step_plain(links, r64, aps64, f64(alpha), f64(kt), lim, mesh, anti_t)
+        note("gcr_stream_step", f"{tag}/r'/lim={lim}", rel_err(out[0], pl[0]), FIELD_TOL)
+        note("gcr_stream_step", f"{tag}/az/lim={lim}", rel_err(out[1], pl[1]), FIELD_TOL)
+        note("gcr_stream_step", f"{tag}/r2/lim={lim}", rel_err(out[2], p64[2]), DOT_TOL)
+        note("gcr_stream_step", f"{tag}/raw/lim={lim}", rel_err(out[3][:lim], p64[3][:lim]),
+             DOT_TOL)
+        note("gcr_stream_step", f"{tag}/apr/lim={lim}", rel_err(out[4][:lim], p64[4][:lim]),
+             DOT_TOL)
+
+
+def half_transfer_parity(mh, gen, note, x) -> None:
+    """B10 and B11 against their plain versions on the half mesh ``mh`` with
+    the eo MG cell's (8, 8, 8, 4) blocks and ne 12; f32 and bf16 basis."""
+    import torch
+
+    from mgpgcr_tpu_torch import cplx
+    from mgpgcr_tpu_torch.kernels.transfer import prolong, prolong_plain, restrict, restrict_plain
+
+    dims = "x".join(map(str, mh.spacetime_dims))
+    bm = mh.blocking((MG_BLOCK, MG_BLOCK, MG_BLOCK, MG_BLOCK // 2))
+    ne = 2 * MG_NULLVECS
+    q = cplx.random(gen, (ne,) + x.shape, torch.float32, x.device)
+    xc = cplx.random(gen, (bm.n_blocks * ne,), torch.float32, x.device)
+    for qname, qf in (("f32", q), ("bf16", q.astype(torch.bfloat16))):
+        what = f"half-mesh {dims}/block 8x8x8x4/{qname}"
+        note("restrict", what, rel_err(restrict(qf, bm, x), restrict_plain(qf, bm, x)), FIELD_TOL)
+        note("prolong", what, rel_err(prolong(qf, bm, xc), prolong_plain(qf, bm, xc)), FIELD_TOL)
+        note("prolong", f"{what}/base/damping=0.7",
+             rel_err(prolong(qf, bm, xc, x, 0.7), prolong_plain(qf, bm, xc, x, 0.7)), FIELD_TOL)
+
+
+def refine_phase(canon, mesh, dev, card: str, b, independent_relres) -> dict:
+    """Mixed-precision refinement of the plain cell: the fused restart-5
+    solve to 1e-6 on two-row f32 links as the inner solve, the residual in
+    complex128 on the card (``SlabWilsonDirac`` with f64 links, the
+    anti-periodic sign folded in), refined to 1e-10. Returns the launch
+    counts of the refined solve."""
+    import torch
+
+    from mgpgcr_tpu_torch import (
+        CudaWilsonDirac, DiracOperator, GCRParams, cplx, kernels, wilson_apply_hi,
+        wilson_refined_solve,
+    )
+    from mgpgcr_tpu_torch.ops.wilson_slab import field_from_slab, field_to_slab
+
+    t1 = time.perf_counter()
+    op = CudaWilsonDirac.build(canon, mesh, compress=True, antiperiodic_t=True, device=dev)
+    a = DiracOperator(op, K)
+    apply_hi = wilson_apply_hi(canon, mesh, K, antiperiodic=True, device=dev)
+    rhs = field_from_slab(torch.complex(b.re, b.im).to(torch.complex128), mesh)
+    inner = GCRParams(tol=1e-6, max_iter=500, restart=RESTART, fused=True)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    s0 = time.perf_counter()
+    res = wilson_refined_solve(a, mesh, rhs, inner, apply_hi, tol=REFINE_TOL, max_refine=10)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - s0
+    counts = kernels.launch_counts()
+    check(res.converged and res.final_relres <= REFINE_TOL,
+          f"refinement reached {res.final_relres} <= {REFINE_TOL}: {res.history}")
+    x = field_to_slab(torch.as_tensor(res.x).to(dev), mesh)
+    check(bool(torch.isfinite(x.real).all()) and bool(torch.isfinite(x.imag).all()),
+          "refined solution finite")
+    rel = independent_relres(cplx.CF(x.real.contiguous(), x.imag.contiguous()))
+    check(rel <= REFINE_TOL, f"refined independent residual {rel} <= {REFINE_TOL}")
+    check(counts["gcr_stream_step"] > 0 and counts["ap_update"] > 0, f"refine launches {counts}")
+    emit("refine", t1, card=card, k=K, tol=REFINE_TOL, inner_tol=1e-6, restart=RESTART,
+         rounds=res.n_refine, inner_iters=res.inner_iters, history=res.history,
+         independent_relres_f64=rel, seconds=wall, ms_per_round=1e3 * wall / res.n_refine,
+         launches=counts)
+    return counts
+
+
+def eigen_phase(canon, mesh, dev, card: str) -> dict:
+    """``smallest_eigenpairs(n=4)`` of the plain operator (the generic GCR
+    inverse, K1): Rayleigh values, residuals, orthonormality. Returns the
+    launch counts."""
+    import numpy as np
+    import torch
+
+    from mgpgcr_tpu_torch import (
+        CudaWilsonDirac, DiracOperator, cplx, kernels, smallest_eigenpairs,
+    )
+
+    t1 = time.perf_counter()
+    op = CudaWilsonDirac.build(canon, mesh, compress=True, antiperiodic_t=True, device=dev)
+    a = DiracOperator(op, K)
+    b0 = cplx.random(torch.Generator(device=dev).manual_seed(17), op.field_shape,
+                     torch.float32, dev)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    s0 = time.perf_counter()
+    res = smallest_eigenpairs(None, a, 4, b0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - s0
+    counts = kernels.launch_counts()
+    v = res.vectors
+    gram = torch.stack([torch.stack([cplx.vdot(v[i], v[j]) for j in range(4)]) for i in range(4)])
+    orth = float((gram - torch.eye(4, dtype=gram.dtype, device=dev)).abs().max())
+    check(bool(np.isfinite(res.values).all()) and bool(np.isfinite(res.residuals).all()),
+          "eigenpairs finite")
+    check(orth <= 1e-4, f"eigenvectors orthonormal: {orth}")
+    check(float(res.values.real.min()) > 0, f"Re lambda > 0 below the critical k: {res.values}")
+    check(counts["dslash_apply"] > 0, f"eigen launches {counts}")
+    emit("eigen", t1, card=card, k=K, n=4, values=[[z.real, z.imag] for z in res.values],
+         residuals=res.residuals.tolist(), orthonormality_err=orth, seconds=wall,
+         launches=counts)
+    return counts
+
+
+def _eo_lattice(canon, mesh, dev):
+    """The operator pieces of an even-odd phase on ``mesh``: 3-row t-major
+    f32 links with the in-kernel anti-periodic sign, the parity split, the
+    seeded right-hand side and the independent f64 residual against the
+    full operator."""
+    import torch
+
+    from mgpgcr_tpu_torch import CudaWilsonDirac, EvenOddWilson, cplx
+
+    d = CudaWilsonDirac.build(canon, mesh, antiperiodic_t=True, device=dev)
+    check(d.t_major and d.anti_t and d.links.shape[2] == 3, "3-row t-major links, in-kernel sign")
+    eo = EvenOddWilson.from_dirac(d)
+    b = cplx.random(torch.Generator(device=dev).manual_seed(7), d.field_shape, torch.float32,
+                    dev)
+    return d, eo, b, independent_residual(canon, mesh, b)
+
+
+def eo_solve_phase(canon, mesh, dev, card: str, plain_iters: int) -> tuple[dict, dict]:
+    """The plain cell through the even-odd Schur complement: ``from_dirac``
+    on 3-row t-major f32 links with the in-kernel sign, the fused
+    restart-5 Schur solve to 1e-6 (B2, B3, K3, K4 on half-size fields; the
+    Schur apply is plain PyTorch), x reconstructed and checked against the
+    full operator in f64. Returns (launch counts, what eo_mg reuses)."""
+    import torch
+
+    from mgpgcr_tpu_torch import GCRParams, cplx, eo_solve, make_schur
+
+    t1 = time.perf_counter()
+    _, eo, b, independent_relres = _eo_lattice(canon, mesh, dev)
+    s = make_schur(eo, K)
+    xe = cplx.random(torch.Generator(device=dev).manual_seed(19), eo.field_shape,
+                     torch.float32, dev)
+    schur_ms = host_ms(lambda: s.apply(xe))
+    params = GCRParams(tol=1e-6, max_iter=500, restart=RESTART, fused=True)
+    eo_solve(eo, K, b, params)  # warm-up
+    runs = [_timed_solve(lambda: eo_solve(eo, K, b, params), b, independent_relres, "eo")
+            for _ in range(2)]
+    counts = runs[0]["launches"]
+    check(runs[0]["iters"] == runs[1]["iters"] and counts == runs[1]["launches"],
+          "eo runs repeat")
+    check(runs[0]["iters"] < plain_iters,
+          f"Schur iterations {runs[0]['iters']} < the full solve's {plain_iters}")
+    check(all(counts[k] > 0 for k in ("update_r", "beta_dots", "ap_update", "basis_flush"))
+          and counts["dslash_apply"] == 0 and counts["gcr_stream_step"] == 0,
+          f"the Schur solve ran B2, B3, K3, K4 and no Dslash kernel: {counts}")
+    emit("eo_solve", t1, card=card, k=K, tol=1e-6, restart=RESTART, lattice=list(mesh.dims),
+         half_field=list(eo.field_shape), full_iters=plain_iters, schur_apply_host_ms=schur_ms,
+         runs=runs)
+    return counts, schur_ms
+
+
+def eo_mg_phase(dev, card: str, note, schur_ms_32: float) -> dict:
+    """MG over the Schur system (``setup_eo_mg``, the MG cell's block 8 and
+    6 null vectors: (8, 8, 8, 4) blocks of the half mesh, column assembly,
+    dense coarse operator, GCR(4) smoother on the Schur operator) and the
+    fused MG-preconditioned restart-5 Schur solve in restart cycles (B2, K3,
+    K4, B10, B11 on the half mesh), on the untiled 16^4 field: the column
+    assembly costs nb * ne Schur applies, which at 32^4 and the Schur
+    apply's host time (``schur_ms_32``, from the eo_solve phase) is past a
+    minute; the phase prints that estimate. Returns the launch counts of
+    setup and solve, summed."""
+    import numpy as np
+    import torch
+
+    from mgpgcr_tpu_torch import (
+        GCRParams, LatticeMesh, MGParams, cplx, eo_half_mesh, eo_solve, kernels, setup_eo_mg,
+    )
+
+    t1 = time.perf_counter()
+    blocks = (MG_BLOCK, MG_BLOCK, MG_BLOCK, MG_BLOCK // 2)
+    columns_32 = eo_half_mesh(LatticeMesh((32, 32, 32, 32, 4, 3))).blocking(blocks).n_blocks \
+        * 2 * MG_NULLVECS
+    estimate_32_s = columns_32 * schur_ms_32 / 1e3
+    print(f"eo_mg runs on the untiled 16^4 field; at 32^4 the column assembly would take "
+          f"{columns_32} Schur applies at {schur_ms_32:.1f} host ms each, ~{estimate_32_s:.0f} s",
+          flush=True)
+    with np.load(ROOT / "data" / "links_16_b6.0_s0.npz") as f:
+        canon = (f["re"], f["im"])
+    mesh = LatticeMesh((16, 16, 16, 16, 4, 3))
+    mh = eo_half_mesh(mesh)
+    _, eo, b, independent_relres = _eo_lattice(canon, mesh, dev)
+    gen = torch.Generator(device=dev).manual_seed(23)
+    # the kernels at the 16^4 half field and half mesh
+    algebra_parity(eo.field_shape, gen, note, RESTART, "half 16^4")
+    half_transfer_parity(mh, gen, note, cplx.random(gen, eo.field_shape, torch.float32, dev))
+    params = GCRParams(tol=1e-6, max_iter=500, restart=RESTART, fused=True)
+    plain_iters = _timed_solve(lambda: eo_solve(eo, K, b, params), b, independent_relres,
+                               "eo 16^4")["iters"]
+
+    timings = {}
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    s0 = time.perf_counter()
+    s, mgp = setup_eo_mg(torch.Generator(device=dev).manual_seed(3), eo, K,
+                         MGParams(block=MG_BLOCK, n_nullvecs=MG_NULLVECS), timings=timings)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - s0
+    setup_counts = kernels.launch_counts()
+    check(mgp.block_map.block_dims == (MG_BLOCK, MG_BLOCK, MG_BLOCK, MG_BLOCK // 2)
+          and mgp.params.assembly == "columns" and mgp.params.coarse_format == "dense",
+          "half-mesh blocks, column assembly, dense coarse operator")
+    check(setup_counts["restrict"] > 0, f"the column assembly ran B10: {setup_counts}")
+    nc = mgp.coarse.shape[0]
+    galerkin = []
+    for _ in range(3):
+        vc = cplx.random(gen, (nc,), torch.float32, dev)
+        galerkin.append(rel_err(mgp.restrict(s.apply(mgp.prolong(vc))), mgp.coarse.apply(vc))[0])
+    check(max(galerkin) <= GALERKIN_TOL, f"eo Galerkin P^H S P = C: {galerkin}")
+
+    outer = GCRParams(tol=1e-6, max_iter=200, restart=RESTART, fused=True, unroll="cycles")
+    eo_solve(eo, K, b, outer, precond=mgp.apply)  # warm-up
+    runs = [_timed_solve(lambda: eo_solve(eo, K, b, outer, precond=mgp.apply), b,
+                         independent_relres, "eo MG") for _ in range(2)]
+    counts = runs[0]["launches"]
+    check(runs[0]["iters"] == runs[1]["iters"], "eo MG runs repeat")
+    check(runs[0]["iters"] < plain_iters,
+          f"eo MG outer iterations {runs[0]['iters']} < the Schur solve's {plain_iters}")
+    check(all(counts[k] > 0 for k in ("update_r", "ap_update", "basis_flush", "restrict",
+                                      "prolong")),
+          f"the eo MG solve ran B2, K3, K4, B10, B11: {counts}")
+    emit("eo_mg", t1, card=card, k=K, tol=1e-6, restart=RESTART, unroll="cycles",
+         lattice=list(mesh.dims), column_estimate_32_s=estimate_32_s,
+         half_mesh=list(mh.spacetime_dims), block=list(mgp.block_map.block_dims),
+         n_nullvecs=MG_NULLVECS, coarse_dim=nc, setup_seconds=setup_s, phase_seconds=timings,
+         setup_launches=setup_counts, galerkin_rel_err=galerkin, schur_iters=plain_iters,
+         runs=runs)
+    return {k: setup_counts[k] + counts[k] for k in counts}
+
+
+def gauge_phase(dev, card: str, hot_dims=(32, 32, 32, 32)) -> dict:
+    """The heat bath on the card: two combined sweeps (heat bath and 3
+    overrelaxation sweeps) at 32^4 from a hot start, complex64; 20 at 8^4
+    from a cold start, the plaquette in the band of tests/test_gauge.py;
+    then the plain fused solve on the generated 32^4 links. Returns the
+    solve's launch counts."""
+    import torch
+
+    from mgpgcr_tpu_torch import (
+        CudaWilsonDirac, DiracOperator, GCRParams, LatticeMesh, cplx, gauge, gcr_solve,
+        thermalized_links,
+    )
+
+    t1 = time.perf_counter()
+    mesh = LatticeMesh((*hot_dims, 4, 3))
+    marks = [time.perf_counter()]
+
+    def mark(s, p):
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+
+    links, hist = thermalized_links(5, mesh, n_sweeps=2, n_or=3, measure_every=1, device=dev,
+                                    on_progress=mark)
+    uni, det = gauge.unitarity_error(links)
+    check(uni <= 1e-5 and det <= 1e-5, f"32^4 links SU(3): {uni}, {det}")
+    check(0.0 < hist[-1] < 1.0, f"32^4 plaquette {hist}")
+    t8 = time.perf_counter()
+    links8, hist8 = thermalized_links(6, LatticeMesh((8, 8, 8, 8, 4, 3)), n_sweeps=20, n_or=3,
+                                      start="cold", measure_every=5, device=dev)
+    torch.cuda.synchronize()
+    cold_s = time.perf_counter() - t8
+    uni8, det8 = gauge.unitarity_error(links8)
+    check(uni8 <= 1e-5 and det8 <= 1e-5, f"8^4 links SU(3): {uni8}, {det8}")
+    check(abs(hist8[-1] - PLAQ_B6) < PLAQ_BAND,
+          f"8^4 cold-start plaquette {hist8[-1]} within {PLAQ_BAND} of {PLAQ_B6}")
+
+    cf = cplx.CF(links.real.contiguous(), links.imag.contiguous())
+    del links
+    op = CudaWilsonDirac.build(cf, mesh, compress=True, antiperiodic_t=True, device=dev)
+    b = cplx.random(torch.Generator(device=dev).manual_seed(7), op.field_shape, torch.float32,
+                    dev)
+    independent_relres = independent_residual(cf, mesh, b)
+    del cf
+    params = GCRParams(tol=1e-6, max_iter=500, restart=RESTART, fused=True)
+    run = _timed_solve(lambda: gcr_solve(DiracOperator(op, K), b, params), b, independent_relres,
+                       "generated links")
+    emit("gauge", t1, card=card, beta=6.0, n_or=3, dtype="complex64",
+         hot=dict(lattice=list(hot_dims), sweeps=2, plaquette=hist, unitarity_err=uni, det_err=det,
+                     first_call_seconds=marks[1] - marks[0],
+                     sweep_seconds=marks[2] - marks[1]),
+         cold_8=dict(sweeps=20, plaquette=hist8, unitarity_err=uni8, det_err=det8,
+                     seconds=cold_s, seconds_per_sweep=cold_s / 20, band=[PLAQ_B6, PLAQ_BAND]),
+         solve=run)
+    return run["launches"]
+
+
+def ingest_phase(dev, card: str, note) -> dict:
+    """Matrix ingestion at 8^4 (the size of the reference's conf5_4-8x8; the
+    CSR of 32^4 would hold 491 million non-zeros on the host): the
+    beta = 6.0 8^4 field materialised as a CSR hopping matrix, round-tripped
+    through parsed.txt (native and numpy) and the ELL .npz cache, detected
+    as Wilson, routed to K1, and solved; the block-stencil operator of the
+    same matrix (``from_csr``, B12). Returns the launch counts of the routed
+    operator's apply and solve and the stencil apply."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from mgpgcr_tpu_torch import (
+        CSRMatrix, CudaWilsonDirac, DiracOperator, GCRParams, LatticeMesh,
+        StencilBlockOperator, cplx, detect_wilson, gcr_solve, kernels, materialize_csr,
+        materialize_ell, wilson_operator_from_csr,
+    )
+    from mgpgcr_tpu_torch.io import load_ell_npz, native_parse, parsed_txt, save_ell_npz
+    from mgpgcr_tpu_torch.kernels.spmv import stencil_spmv, stencil_spmv_plain
+
+    t1 = time.perf_counter()
+    dims = (8, 8, 8, 8)
+    mesh = LatticeMesh((*dims, 4, 3))
+    with np.load(ROOT / "data" / "links_8x8_b6.0_s0.npz") as f:
+        links = f["re"].astype(np.float64) + 1j * f["im"]
+    secs = {}
+
+    def timed(name, fn):
+        s0 = time.perf_counter()
+        out = fn()
+        secs[name] = time.perf_counter() - s0
+        return out
+
+    csr = timed("materialize_csr", lambda: materialize_csr(links, mesh))
+    build = ROOT / "mgpgcr_tpu_torch" / "_build"
+    build.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build) as tmp:
+        check(native_parse.available(), "the native parser builds from native/parse.cpp")
+
+        def write_native(p, m):
+            check(native_parse.write_parsed_txt_native(str(p), m.indptr, m.indices, m.data,
+                                                       m.shape), "native parsed.txt writer")
+
+        def read_native(p):
+            fast = native_parse.read_parsed_txt_native(str(p))
+            check(fast is not None, "native parsed.txt reader")
+            return CSRMatrix(*fast)
+
+        ways = {"native": (write_native, read_native),
+                "numpy": (parsed_txt._write_numpy, parsed_txt._read_numpy)}
+        for tag, (write, read) in ways.items():
+            p = Path(tmp) / f"parsed_{tag}.txt"
+            timed(f"write_{tag}", lambda: write(p, csr))
+            back = timed(f"read_{tag}", lambda: read(p))
+            check(np.array_equal(back.indptr, csr.indptr)
+                  and np.array_equal(back.indices, csr.indices), f"{tag} parsed.txt structure")
+            err = float(np.abs(back.data - csr.data).max())
+            # the numpy writer keeps 6 significant digits (the reference's %g)
+            check(err == 0.0 if tag == "native" else err <= 1e-5,
+                  f"{tag} parsed.txt values: {err}")
+            other = ways["numpy" if tag == "native" else "native"][1](p)
+            check(np.array_equal(other.data, back.data), f"{tag} file read both ways")
+        ell = timed("materialize_ell", lambda: materialize_ell(links, mesh, device=dev))
+        p = Path(tmp) / "ell.npz"
+        timed("save_ell_npz", lambda: save_ell_npz(p, ell))
+        ell2 = timed("load_ell_npz", lambda: load_ell_npz(p, device=dev))
+        check(bool(torch.equal(ell.vals, ell2.vals)) and bool(torch.equal(ell.cols, ell2.cols))
+              and ell.n_cols == ell2.n_cols, "ELL .npz round trip")
+    det = timed("detect_wilson", lambda: detect_wilson(csr, dims))
+    check(det is not None and det.signs == (1, 1, 1, 1) and det.max_error < 1e-12,
+          "the materialised matrix is detected as Wilson")
+    a = timed("wilson_operator_from_csr",
+              lambda: wilson_operator_from_csr(csr, dims, K, device=dev))
+    check(isinstance(a.d, CudaWilsonDirac) and a.d.t_major, "routed to K1")
+    direct = DiracOperator(CudaWilsonDirac.build(links, mesh, device=dev), K)
+    sb = StencilBlockOperator.from_csr(csr, dims, 12, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(29)
+    psi = cplx.random(gen, a.d.field_shape, torch.float32, dev)
+    xf = cplx.random(gen, (mesh.size,), torch.float32, dev)
+    b = cplx.random(torch.Generator(device=dev).manual_seed(7), a.d.field_shape, torch.float32,
+                    dev)
+    params = GCRParams(tol=1e-6, max_iter=500, restart=RESTART, fused=True)
+
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    y = a.apply(psi)
+    res = gcr_solve(a, b, params)
+    ys = sb.apply(xf)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    check(counts["dslash_apply"] > 0 and counts["gcr_stream_step"] > 0
+          and counts["stencil_spmv"] > 0, f"ingest launches {counts}")
+
+    apply_err = rel_err(y, direct.apply(psi))[0]
+    check(apply_err <= 1e-6, f"routed apply against the direct operator: {apply_err}")
+    direct_res = gcr_solve(direct, b, params)
+    check(res.converged and res.n_iters == direct_res.n_iters,
+          f"routed solve {res.n_iters} iterations, direct {direct_res.n_iters}")
+    x_err = rel_err(res.x, direct_res.x)[0]
+    # the kernels the routed operator's solve launched, at its 8^4 shapes
+    dslash_step_parity(a.d.links, mesh, gen, note, RESTART, "ingested 8^4", a.d.anti_t)
+    algebra_parity(a.d.field_shape, gen, note, RESTART, "8^4")
+    note("stencil_spmv", "ingested 8^4/ne12",
+         rel_err(stencil_spmv(sb.blocks, xf, dims), stencil_spmv_plain(sb.blocks, xf, dims)),
+         FIELD_TOL)
+    ref = csr.spmv_torch(torch.complex(xf.re, xf.im).to(torch.complex128))
+    spmv_err = rel_err(torch.complex(ys.re, ys.im), ref)[0]
+    check(spmv_err <= FIELD_TOL, f"B12 on the ingested stencil against the CSR SpMV: {spmv_err}")
+    emit("ingest", t1, card=card, lattice=list(mesh.dims), nnz=csr.nnz, k=K,
+         host_seconds=secs, detect_max_error=det.max_error, routed_apply_rel_err=apply_err,
+         routed_iters=res.n_iters, direct_iters=direct_res.n_iters, x_rel_err=x_err,
+         stencil_vs_csr_rel_err=spmv_err, launches=counts)
+    return counts
+
+
 def main() -> int:
     import torch
 
@@ -1506,7 +2035,7 @@ def main() -> int:
     import numpy as np
 
     from mgpgcr_tpu_torch import (
-        CudaWilsonDirac, DiracOperator, GCRParams, LatticeMesh, cplx, gcr_solve,
+        CudaWilsonDirac, DiracOperator, GCRParams, LatticeMesh, cplx, eo_half_mesh, gcr_solve,
         links_from_numpy,
     )
     from mgpgcr_tpu_torch import kernels
@@ -1631,6 +2160,10 @@ def main() -> int:
     mg_inputs = mg_kernel_parity(mesh, variants, gen, note, S)
     loop_inputs = loop_kernel_parity(fshape, dev, gen, note, S)
     new_inputs = new_kernel_parity(mesh, canon, variants, psi, kt, gen, note)
+    hshape = (4, 3, 32, 32, 32 * 16)  # the even-odd paths' half fields and half mesh
+    algebra_parity(hshape, gen, note, S, "half 32^4")
+    half_transfer_parity(eo_half_mesh(mesh), gen, note,
+                         cplx.random(gen, hshape, torch.float32, dev))
     torch.cuda.synchronize()
     emit("parity", t1, cases=len(worst), field_tol=FIELD_TOL, dot_tol=DOT_TOL,
          worst={k: max(v for kk, v in worst.items() if kk.startswith(k + ":")) for k in max_abs
@@ -1718,13 +2251,7 @@ def main() -> int:
     a = DiracOperator(op, K)
     b = cplx.random(torch.Generator(device=dev).manual_seed(7), op.field_shape,
                     torch.float32, dev)
-    links64 = links_from_numpy(canon, mesh, dev, link_dtype=torch.float64)
-    k64 = torch.tensor(K, dtype=torch.complex128, device=dev)
-    b64 = b.astype(torch.float64)
-
-    def independent_relres(x) -> float:
-        rr = b64 - dslash_plain(links64, x.astype(torch.float64), mesh, k64, anti_t=True)
-        return float(torch.sqrt(cplx.abs2_sum(rr) / cplx.abs2_sum(b64)))
+    independent_relres = independent_residual(canon, mesh, b)
 
     forms = {"fused": True, "generic": False}
     solves = {}
@@ -1793,8 +2320,17 @@ def main() -> int:
         note(kname, what, err, tol)
     dist_counts = dist_solve_phase(canon, mesh, dev, card, b, independent_relres,
                                    solves["fused"]["iters"], x_plain)
+
+    # ---- refinement, eigenpairs, even-odd, heat bath, ingestion ------------
+    refine_counts = refine_phase(canon, mesh, dev, card, b, independent_relres)
+    eigen_counts = eigen_phase(canon, mesh, dev, card)
+    eo_counts, schur_ms = eo_solve_phase(canon, mesh, dev, card, solves["fused"]["iters"])
+    eo_mg_counts = eo_mg_phase(dev, card, note, schur_ms)
+    gauge_counts = gauge_phase(dev, card)
+    ingest_counts = ingest_phase(dev, card, note)
     path_counts = (plain_counts, mg_counts, loop_counts, record_counts, three_counts, mu_counts,
-                   *dist_counts)
+                   *dist_counts, refine_counts, eigen_counts, eo_counts, eo_mg_counts,
+                   gauge_counts, ingest_counts)
 
     rows = []
     for kname, (short, replaces, source) in REPLACES.items():

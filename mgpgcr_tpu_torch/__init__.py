@@ -10,17 +10,27 @@ plain or with the multigrid preconditioner (``setup_mg``: any number of
 levels, dense, block-ELL or block-stencil coarse operators), on one card or
 domain-decomposed over (t, z) shards (``gcr_solve_sharded`` per rank,
 ``gcr_solve_grid`` for every rank of a grid in one process; ranks as
-threads or as ``torch.distributed`` processes, ``parallel/``). Entry
+threads or as ``torch.distributed`` processes, ``parallel/``). Around the
+solve: mixed-precision refinement to complex128 residuals
+(``refined_solve``, ``wilson_refined_solve``), low eigenpairs
+(``smallest_eigenpairs``), the even-odd Schur solve, plain or with MG on
+the half mesh (``EvenOddWilson``, ``eo_solve``, ``setup_eo_mg``), the
+quenched heat-bath generator (``gauge.thermalized_links``), and matrix
+ingestion (``io/``, ``CSRMatrix``, ``detect_wilson``,
+``wilson_operator_from_csr``). Entry
 points run on CUDA unless the caller passes ``device="cpu"``; CPU tensors
 take each kernel's plain PyTorch version. The JAX package ``mgpgcr_tpu``
 is the reference this package is held against.
 """
 
-from mgpgcr_tpu_torch import cplx, fields
+from mgpgcr_tpu_torch import cplx, fields, gauge
+from mgpgcr_tpu_torch.gauge import thermalized_links, thermalized_links_cf
 from mgpgcr_tpu_torch.mesh import BlockMap, LatticeMesh
 from mgpgcr_tpu_torch.ops.base import FunctionOperator
 from mgpgcr_tpu_torch.ops.blockstencil import StencilBlockOperator
 from mgpgcr_tpu_torch.ops.bsr import BlockSparseOperator
+from mgpgcr_tpu_torch.ops.coo import COOMatrix
+from mgpgcr_tpu_torch.ops.csr import CSRMatrix
 from mgpgcr_tpu_torch.ops.dense import DenseOperator
 from mgpgcr_tpu_torch.ops.dirac import DiracOperator
 from mgpgcr_tpu_torch.ops.dslash_dist import ShardLocalWilsonDirac
@@ -30,7 +40,21 @@ from mgpgcr_tpu_torch.ops.dslash import (
     field_to_numpy,
     links_from_numpy,
 )
-from mgpgcr_tpu_torch.ops.wilson import WilsonDiracOperator
+from mgpgcr_tpu_torch.ops.ell import ELLOperator
+from mgpgcr_tpu_torch.ops.eo import (
+    EvenOddWilson,
+    SchurDirac,
+    field_from_eo,
+    field_to_eo,
+    make_schur,
+)
+from mgpgcr_tpu_torch.ops.ingest import (
+    SpinConjugatedOperator,
+    WilsonDetection,
+    detect_wilson,
+    wilson_operator_from_csr,
+)
+from mgpgcr_tpu_torch.ops.wilson import WilsonDiracOperator, materialize_csr, materialize_ell
 from mgpgcr_tpu_torch.ops.wilson_slab import (
     SlabWilsonDirac,
     field_from_slab,
@@ -49,6 +73,8 @@ from mgpgcr_tpu_torch.parallel import (
     run_spmd,
     shard_field,
 )
+from mgpgcr_tpu_torch.solvers.eigen import EigenResult, smallest_eigenpairs
+from mgpgcr_tpu_torch.solvers.eo import eo_half_mesh, eo_mg_params, eo_solve, setup_eo_mg
 from mgpgcr_tpu_torch.solvers.gcr import GCRSolver, gcr_solve, gcr_solve_eager, gcr_solve_jit
 from mgpgcr_tpu_torch.solvers.gcr_dist import gcr_solve_grid, gcr_solve_sharded
 from mgpgcr_tpu_torch.solvers.mg import (
@@ -59,6 +85,12 @@ from mgpgcr_tpu_torch.solvers.mg import (
 )
 from mgpgcr_tpu_torch.solvers.params import GCRParams, MGParams
 from mgpgcr_tpu_torch.solvers.power import inverse_power_vectors
+from mgpgcr_tpu_torch.solvers.refine import (
+    RefineResult,
+    refined_solve,
+    wilson_apply_hi,
+    wilson_refined_solve,
+)
 from mgpgcr_tpu_torch.solvers.result import SolveResult
 
 __all__ = [
@@ -105,4 +137,31 @@ __all__ = [
     "shard_field",
     "gcr_solve_sharded",
     "gcr_solve_grid",
+    "RefineResult",
+    "refined_solve",
+    "wilson_refined_solve",
+    "wilson_apply_hi",
+    "EigenResult",
+    "smallest_eigenpairs",
+    "EvenOddWilson",
+    "SchurDirac",
+    "make_schur",
+    "field_to_eo",
+    "field_from_eo",
+    "eo_solve",
+    "eo_half_mesh",
+    "eo_mg_params",
+    "setup_eo_mg",
+    "gauge",
+    "thermalized_links",
+    "thermalized_links_cf",
+    "CSRMatrix",
+    "COOMatrix",
+    "ELLOperator",
+    "materialize_csr",
+    "materialize_ell",
+    "WilsonDetection",
+    "SpinConjugatedOperator",
+    "detect_wilson",
+    "wilson_operator_from_csr",
 ]

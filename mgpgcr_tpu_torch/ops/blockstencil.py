@@ -12,8 +12,8 @@ only to itself and its 2 * ndim periodic grid neighbours,
 CUDA tensors and its plain version for CPU tensors
 (``kernels/spmv.py``); there is one route, as with the transfers.
 ``detect_block_stencil`` checks a CSR matrix against the structure and
-extracts the block tensor (numpy, as in the JAX package). ``from_csr``
-waits for the port's CSR format.
+extracts the block tensor (numpy, as in the JAX package); ``from_csr``
+builds the operator from an ingested CSR matrix.
 """
 
 from __future__ import annotations
@@ -95,6 +95,17 @@ class StencilBlockOperator(LinearOperator):
     def dtype(self) -> torch.dtype:
         """The real dtype of the fields it applies to."""
         return torch.float64 if self.blocks.dtype == torch.float64 else torch.float32
+
+    @staticmethod
+    def from_csr(csr, dims: tuple[int, ...], ne: int, dtype=torch.float32,
+                 device=None) -> "StencilBlockOperator | None":
+        """Detect and build from an ingested CSR matrix (``ops/csr.py``), the
+        blocks stored as ``dtype`` on ``device`` (CUDA unless named); None
+        when the matrix is not an ``ne``-blocked stencil on ``dims``."""
+        blocks = detect_block_stencil(csr, dims, ne)
+        if blocks is None:
+            return None
+        return StencilBlockOperator(cplx.from_numpy(blocks, dtype, device), dims)
 
     def with_block_dtype(self, dtype) -> "StencilBlockOperator":
         """Reduced-precision block storage (e.g. ``torch.bfloat16``): the

@@ -13,8 +13,10 @@ in the Dirac basis (the one implied by the reference's gamma5 spinor swap
 with sigma3 -> z, sigma2 -> y, sigma1 -> x for the dim order (t, z, y, x).
 Links are canonical ``(4, T, Z, Y, X, 3, 3)`` complex arrays;
 ``WilsonDiracOperator`` applies D to canonical (flat or lattice-shaped)
-fields in plain PyTorch, as the JAX package's form is XLA; and
-``dirac_apply_np`` is the port's own numpy oracle of A = I - kD.
+fields in plain PyTorch, as the JAX package's form is XLA;
+``dirac_apply_np`` is the port's own numpy oracle of A = I - kD; and
+``materialize_csr`` / ``materialize_ell`` assemble D as an explicit matrix
+in the reference fixtures' layout (the ingestion path's test input).
 """
 
 from __future__ import annotations
@@ -27,6 +29,8 @@ import torch
 from mgpgcr_tpu_torch import cplx
 from mgpgcr_tpu_torch.mesh import LatticeMesh
 from mgpgcr_tpu_torch.ops.base import LinearOperator
+from mgpgcr_tpu_torch.ops.csr import CSRMatrix
+from mgpgcr_tpu_torch.ops.ell import ELLOperator
 
 _S1 = np.array([[0, 1], [1, 0]], dtype=np.complex128)
 _S2 = np.array([[0, -1j], [1j, 0]], dtype=np.complex128)
@@ -184,3 +188,33 @@ def dirac_apply_np(
         out += np.einsum("ij,tzyxjc->tzyxic", P_PLUS[mu], bwd)
     res = psi - k * out if k else out
     return res.reshape(-1)
+
+
+def materialize_csr(links, mesh: LatticeMesh) -> CSRMatrix:
+    """D as an explicit host CSR matrix in the reference fixtures' layout:
+    row / column index ((site * 4) + spinor) * 3 + colour, sites row-major
+    in (t, z, y, x). Links are canonical complex (4, T, Z, Y, X, 3, 3)."""
+    links = np.asarray(links)
+    st = mesh.spacetime_dims
+    n_sites = mesh.n_sites
+    site_idx = np.arange(n_sites).reshape(st)
+    rows_all, cols_all, vals_all = [], [], []
+    for mu in range(4):
+        nbr_fwd = np.roll(site_idx, -1, axis=mu).ravel()
+        nbr_bwd = np.roll(site_idx, 1, axis=mu).ravel()
+        u = links[mu].reshape(n_sites, 3, 3)
+        udag = np.roll(links[mu], 1, axis=mu).reshape(n_sites, 3, 3).conj().transpose(0, 2, 1)
+        for proj, nbr, umat in ((P_MINUS[mu], nbr_fwd, u), (P_PLUS[mu], nbr_bwd, udag)):
+            for s, t in zip(*np.nonzero(np.abs(proj) > 1e-14)):
+                for c in range(3):
+                    for b in range(3):
+                        rows_all.append(np.arange(n_sites) * 12 + s * 3 + c)
+                        cols_all.append(nbr * 12 + t * 3 + b)
+                        vals_all.append(proj[s, t] * umat[:, c, b])
+    return CSRMatrix.from_triplets(np.concatenate(rows_all), np.concatenate(cols_all),
+                                   np.concatenate(vals_all), (mesh.size, mesh.size))
+
+
+def materialize_ell(links, mesh: LatticeMesh, dtype=None, device=None) -> ELLOperator:
+    """:func:`materialize_csr` in ELL form on ``device`` (CUDA unless named)."""
+    return materialize_csr(links, mesh).to_ell(dtype=dtype, device=device)

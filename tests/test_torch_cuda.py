@@ -497,3 +497,99 @@ def test_dist_solve(dev):
     assert float(torch.sqrt(cplx.abs2_sum(rr) / cplx.abs2_sum(b))) < 2e-6
     assert counts["gcr_stream_step_dist"] > 0 and counts["dslash_dist"] > 0
     assert counts["gcr_stream_step"] == 0 and counts["dslash_apply"] == 0
+
+
+# The even-odd paths' shapes: half-size fields (4, 3, T, Z, Y*X/2) of the
+# Schur solves and the half mesh's (b, b, b, b/2) blocks of its MG.
+HALF_MESH = (8, 8, 8, 8)  # the half mesh of an 8x8x8x16 lattice
+
+
+@pytest.mark.parametrize("b", [2, 4, 8])
+def test_half_mesh_transfers(dev, b):
+    mesh_h = LatticeMesh((*HALF_MESH, 4, 3))
+    bm = mesh_h.blocking((b, b, b, max(b // 2, 1)))
+    gen = torch.Generator(device=dev).manual_seed(3)
+    shape = (4, 3, HALF_MESH[0], HALF_MESH[1], HALF_MESH[2] * HALF_MESH[3])
+    ne = 6
+    x = cplx.random(gen, shape, torch.float32, dev)
+    q = cplx.random(gen, (ne,) + shape, torch.float32, dev)
+    xc = cplx.random(gen, (bm.n_blocks * ne,), torch.float32, dev)
+    for qf in (q, q.astype(torch.bfloat16)):
+        _close(restrict(qf, bm, x), restrict_plain(qf, bm, x))
+        _close(prolong(qf, bm, xc, x, 0.7), prolong_plain(qf, bm, xc, x, 0.7))
+
+
+def test_half_field_gcr_kernels(dev):
+    S = 5
+    gen = torch.Generator(device=dev).manual_seed(4)
+    shape = (4, 3, 8, 8, 8 * 4)  # the even half of 8^4
+    r = cplx.random(gen, shape, torch.float32, dev)
+    az = cplx.random(gen, shape, torch.float32, dev)
+    aps = cplx.random(gen, (S,) + shape, torch.float32, dev)
+    alpha = torch.tensor(0.4 + 0.1j, dtype=torch.complex64, device=dev)
+    betas = torch.complex(torch.rand(S, generator=gen, device=dev),
+                          torch.rand(S, generator=gen, device=dev))
+    for lim in range(1, S + 1):
+        slot = lim % S
+        for g, w in zip(update_r(r, aps, lim - 1, alpha), update_r_plain(r, aps, lim - 1, alpha)):
+            _close(g, w)
+        _close(beta_dots(aps, az, lim)[:lim], beta_dots_plain(aps, az, lim)[:lim])
+        got = ap_update(az, aps.clone(), betas, slot, lim, r=r)
+        want = ap_update_plain(az, aps.clone(), betas, slot, lim, r=r)
+        for g, w in zip(got, want):
+            _close(g, w)
+        basis = [aps[m] for m in range(lim)] + [r]
+        w = betas[: lim + 1] if lim < S else torch.cat([betas, betas[:1]])
+        for g, ww in zip(basis_flush(r, basis, w, w.conj()),
+                         basis_flush_plain(r, basis, w, w.conj())):
+            _close(g, ww)
+
+
+def test_eo_paths_on_card(dev):
+    from mgpgcr_tpu_torch import EvenOddWilson, eo_solve, setup_eo_mg
+    from mgpgcr_tpu_torch import kernels
+
+    mesh = LatticeMesh((8, 8, 8, 16, 4, 3))
+    links = wilson.random_links_np(6, mesh)
+    d = CudaWilsonDirac.build(links, mesh, antiperiodic_t=True, device=dev)
+    eo = EvenOddWilson.from_dirac(d)
+    b = cplx.random(torch.Generator(device=dev).manual_seed(7), d.field_shape, torch.float32,
+                    dev)
+    params = GCRParams(tol=1e-6, max_iter=300, restart=5, fused=True)
+    kernels.reset_launches()
+    plain = eo_solve(eo, 0.12, b, params)
+    assert plain.converged and kernels.launch_counts()["ap_update"] > 0
+    _, mgp = setup_eo_mg(torch.Generator(device=dev).manual_seed(3), eo, 0.12,
+                         MGParams(block=4, n_nullvecs=2))
+    kernels.reset_launches()
+    res = eo_solve(eo, 0.12, b, GCRParams(tol=1e-6, max_iter=100, restart=5, fused=True,
+                                          unroll="cycles"), precond=mgp.apply)
+    counts = kernels.launch_counts()
+    assert res.converged and res.n_iters < plain.n_iters
+    assert counts["restrict"] > 0 and counts["prolong"] > 0 and counts["update_r"] > 0
+    for x in (plain.x, res.x):
+        r = b - DiracOperator(d, 0.12).apply(x)
+        assert float(torch.sqrt(cplx.abs2_sum(r) / cplx.abs2_sum(b))) < 2e-6
+
+
+def test_heatbath_sweep_cuda_matches_cpu(dev):
+    from mgpgcr_tpu_torch import gauge
+
+    mesh = LatticeMesh((4, 4, 4, 4, 4, 3))
+    links = torch.as_tensor(wilson.random_links_np(5, mesh))
+
+    def sampler():  # the same draws for both runs, made on the CPU
+        g = torch.Generator().manual_seed(9)
+
+        def sample(mu, parity, idx, alpha):
+            h0, _ = gauge.kp_sample(g, alpha.cpu())
+            return gauge.random_su2_from_h0(g, h0, torch.complex128)
+
+        return sample
+
+    cpu = gauge.sweep(None, links, 6.0, n_or=2, sampler=sampler())
+    gpu = gauge.sweep(None, links.to(dev), 6.0, n_or=2, sampler=sampler())
+    np.testing.assert_allclose(gpu.cpu().numpy(), cpu.numpy(), rtol=0, atol=1e-10)
+    u64, _ = gauge.thermalized_links(1, mesh, n_sweeps=3, n_or=1, device=dev)
+    uni, det = gauge.unitarity_error(u64)
+    assert u64.device.type == "cuda" and uni < 2e-6 and det < 2e-6
