@@ -19,7 +19,9 @@ a three-level MG (the block-8 cell with block-stencil coarse operators on
 (t, z) shards, ranks as threads sharing the card and as a one-process NCCL
 group; then the seventh slice: mixed-precision refinement, low eigenpairs,
 the even-odd Schur solve (plain and with MG), the heat bath on the card and
-matrix ingestion.
+matrix ingestion; then the eighth: the command line in this process, MG
+checkpoints, the sharded MG setup and solve, the sharded even-odd solve and
+the driver's entry points (``__graft_entry_cuda__.py``).
 
 Phases, each printed as one JSON line with its wall seconds:
   device    the card's name and power limit (nvidia-smi);
@@ -86,7 +88,27 @@ Phases, each printed as one JSON line with its wall seconds:
             generated links;
   ingest    the 8^4 field as a CSR matrix: parsed.txt (native, numpy) and
             .npz round trips, Wilson detection, the routed operator and its
-            solve against the direct one, B12 on the ingested stencil.
+            solve against the direct one, B12 on the ingested stencil;
+  cli       ``mgpgcr_tpu_torch.cli.main`` in this process: the 32^4 cf32
+            solves (plain fused restart 5; --mg block 8, 6 null vectors;
+            --mg with the block-stencil coarse operator, block 4, 10 null
+            vectors, smoother off; --eo), a 3-point ksweep at 16^4,
+            generate at 8^4 then solve --matrix (detection); each converged
+            with its independent residual <= 2e-6 and its kernels launched;
+            one ``python -m mgpgcr_tpu_torch info`` subprocess;
+  checkpoint  save_mg_setup / load_mg_setup of the MG cell's hierarchy on the
+            16^4 field (the 32^4 times estimated): the loaded V-cycle bit-equal,
+            the same outer iterations;
+  mg_dist   setup_mg_sharded and mg_gcr_solve_sharded: a world-size-1 NCCL
+            group at 32^4 (the MG cell's parameters) and the (2, 2) and (4, 1)
+            grids of thread ranks at 16^4, outer iterations within 1 of the
+            single-device solves, setup seconds by phase, host ms per outer
+            iteration, launches; B10, B11, B14 and B15 against their plain
+            versions at every shard shape;
+  eo_dist   the Schur solve on (t, z) shards (eo_sharded): a (2, 2) thread
+            grid at 16^4 and a world-size-1 NCCL group at 32^4, iterations
+            against eo_solve's;
+  graft     __graft_entry_cuda__'s entry() step and dryrun_multichip(4).
 The parity phase also holds B2, B3, K3, K4 on half-size fields and B10,
 B11 on the half mesh's blocks; eo_mg and ingest add B10/B11 at their half
 mesh and B12 at the ingested stencil. Then the kernel table, the card
@@ -2025,6 +2047,495 @@ def ingest_phase(dev, card: str, note) -> dict:
     return counts
 
 
+# ---------------------------------------------------------------------------
+# the eighth slice: the command line, checkpoints, sharded MG and even-odd,
+# the driver's entry points
+# ---------------------------------------------------------------------------
+CLI_SOLVE = ["solve", "--platform", "cuda", "--dtype", "cf32", "--lattice", "32", "32", "32", "32",
+             "--k", str(K), "--tol", "1e-6", "--restart", str(RESTART), "--fused",
+             "--antiperiodic"]
+# the CLI's runs: (name, argv, kernels each must launch)
+CLI_RUNS = (
+    ("plain", CLI_SOLVE, PLAIN_KERNELS),
+    ("mg", CLI_SOLVE + ["--mg", "--block", str(MG_BLOCK), "--nullvecs", str(MG_NULLVECS)],
+     ("dslash_apply", "gcr_stream_step", "ap_update", "basis_flush", "gcr_z_step", "update_xr",
+      "dir_update", "restrict", "prolong")),
+    ("mg_record", CLI_SOLVE + ["--mg", "--coarse-format", "stencil", "--block", str(REC_BLOCK),
+                               "--nullvecs", str(REC_NULLVECS), "--no-smoother"],
+     ("dslash_apply", "gcr_z_step", "restrict", "prolong", "stencil_spmv")),
+    ("eo", CLI_SOLVE + ["--eo"], ("update_r", "beta_dots", "ap_update", "basis_flush")),
+    ("ksweep", ["ksweep", "--platform", "cuda", "--dtype", "cf32", "--lattice", "16", "16", "16",
+                "16", "--kmin", "0.1", "--kmax", str(K), "--n", "3", "--tol", "1e-6",
+                "--restart", str(RESTART), "--fused", "--antiperiodic"], PLAIN_KERNELS),
+)
+MG_DIST_BLOCK = 4  # the 16^4 thread grids' block: 8 does not divide the (4, 1) grid's T = 4 shards
+MG_DIST_GRIDS = ((2, 2), (4, 1))
+
+
+def _cli(argv) -> tuple[int, list, float, dict]:
+    """``cli.main(argv)`` in this process with the launch counts set to 0
+    just before and read just after: (exit code, the JSON lines it printed,
+    wall seconds, launch counts)."""
+    import contextlib
+    import io
+
+    import torch
+
+    from mgpgcr_tpu_torch import cli, kernels
+
+    buf = io.StringIO()
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    s0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - s0
+    out = [json.loads(x) for x in buf.getvalue().splitlines() if x.startswith("{")]
+    return rc, out, wall, kernels.launch_counts()
+
+
+def cli_phase(card: str) -> list:
+    """The command line in this process (``mgpgcr_tpu_torch.cli.main``): the
+    32^4 solves of CLI_RUNS (the CLI's own Haar-random links, seed 0, and
+    right-hand side), a 3-point ksweep at 16^4, and ``generate`` at 8^4
+    followed by ``solve --matrix`` on the file (Wilson detection, the Dslash
+    kernel on 3-row links); each run converged, its independent residual
+    (the CLI's own, in f32) <= 2e-6, and its kernels launched; then one
+    ``python -m mgpgcr_tpu_torch info`` subprocess. Returns the runs'
+    launch counts."""
+    import tempfile
+
+    t1 = time.perf_counter()
+    runs, all_counts = {}, []
+
+    def drive(name, argv, expect):
+        rc, out, wall, counts = _cli(argv)
+        check(rc == 0 and out, f"cli {name}: exit {rc}")
+        for o in out:
+            check(o["converged"] and o["indep_relres"] <= 2e-6,
+                  f"cli {name}: converged, independent residual {o['indep_relres']} <= 2e-6")
+        missing = [k for k in expect if counts[k] == 0]
+        check(not missing, f"cli {name}: {missing} not launched: {counts}")
+        runs[name] = {"argv": " ".join(argv), "results": out, "wall_s": wall,
+                      "launches": {k: v for k, v in counts.items() if v}}
+        all_counts.append(counts)
+
+    for name, argv, expect in CLI_RUNS:
+        drive(name, argv, expect)
+    check(runs["eo"]["results"][0]["iters"] < runs["plain"]["results"][0]["iters"],
+          "cli: the Schur solve takes fewer iterations than the full one")
+    check(runs["mg"]["results"][0]["iters"] < runs["plain"]["results"][0]["iters"],
+          "cli: MG takes fewer outer iterations than the plain solve")
+    with tempfile.TemporaryDirectory() as tmp:
+        fixture = f"{tmp}/w8.txt"
+        rc, out, wall, _ = _cli(["generate", fixture, "--lattice", "8", "8", "8", "8",
+                                 "--seed", "1"])
+        check(rc == 0 and out[0]["rows"] == 12 * 8**4, f"cli generate: {out}")
+        runs["generate"] = {"results": out, "wall_s": wall}
+        drive("matrix", ["solve", "--platform", "cuda", "--dtype", "cf32", "--matrix", fixture,
+                         "--k", str(K), "--tol", "1e-6", "--restart", str(RESTART), "--fused"],
+              PLAIN_KERNELS)
+    check(runs["matrix"]["results"][0].get("detected_wilson") is True,
+          "cli: the generated matrix was detected as Wilson and routed to the Dslash kernel")
+    s0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "mgpgcr_tpu_torch", "info"], cwd=ROOT,
+                          capture_output=True, text=True, timeout=300)
+    check(proc.returncode == 0, f"python -m mgpgcr_tpu_torch info: {proc.stderr[-2000:]}")
+    info = json.loads(proc.stdout.strip().splitlines()[-1])
+    check(info["backend"] == "cuda" and info["device_kind"], f"info: {info}")
+    emit("cli", t1, card=card, info=info, info_s=time.perf_counter() - s0, **runs)
+    return all_counts
+
+
+def _mg16(dev):
+    """The untiled 16^4 field: (canonical links, mesh, operator, rhs,
+    independent f64 residual)."""
+    import numpy as np
+    import torch
+
+    from mgpgcr_tpu_torch import CudaWilsonDirac, DiracOperator, LatticeMesh, cplx
+
+    with np.load(ROOT / "data" / "links_16_b6.0_s0.npz") as f:
+        canon = (f["re"], f["im"])
+    mesh = LatticeMesh((16, 16, 16, 16, 4, 3))
+    op = CudaWilsonDirac.build(canon, mesh, compress=True, antiperiodic_t=True, device=dev)
+    b = cplx.random(torch.Generator(device=dev).manual_seed(7), op.field_shape, torch.float32,
+                    dev)
+    return canon, mesh, DiracOperator(op, K), b, independent_residual(canon, mesh, b)
+
+
+def checkpoint_phase(dev, card: str) -> dict:
+    """``save_mg_setup`` / ``load_mg_setup`` of the MG cell's hierarchy
+    (block 8, 6 null vectors, dense coarse, GCR(4) smoother on bf16 links)
+    on the untiled 16^4 field: at 32^4 the basis alone is 1.2 GB before
+    compression, so the phase prints the 32^4 estimate (16x the volume)
+    from the measured times. The loaded V-cycle is bit-equal to the
+    original on the card, and the MG solve with it takes the same outer
+    iterations. Returns the launch counts of the solve with the loaded
+    hierarchy."""
+    import os
+    import tempfile
+
+    import torch
+
+    from mgpgcr_tpu_torch import (
+        GCRParams, MGParams, load_mg_setup, save_mg_setup, setup_mg, with_link_dtype,
+    )
+
+    t1 = time.perf_counter()
+    _, mesh, a, b, independent_relres = _mg16(dev)
+    a_smooth = type(a)(with_link_dtype(a.d, torch.bfloat16), K)
+    mgp = setup_mg(torch.Generator(device=dev).manual_seed(3), a, mesh,
+                   MGParams(block=MG_BLOCK, n_nullvecs=MG_NULLVECS), smoother_operator=a_smooth)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "mg16.npz")
+        torch.cuda.synchronize()
+        s0 = time.perf_counter()
+        save_mg_setup(path, mgp)
+        save_s = time.perf_counter() - s0
+        nbytes = os.path.getsize(path)
+        s0 = time.perf_counter()
+        loaded = load_mg_setup(path, a, smoother_operator=a_smooth)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - s0
+    y0, y1 = mgp.apply(b), loaded.apply(b)
+    check(torch.equal(y0.re, y1.re) and torch.equal(y0.im, y1.im),
+          "the loaded V-cycle is bit-equal to the original")
+    outer = GCRParams(tol=1e-6, max_iter=200, restart=RESTART, fused=True, unroll="cycles")
+    from mgpgcr_tpu_torch import gcr_solve
+
+    runs = {}
+    for what, m in (("original", mgp), ("loaded", loaded)):
+        runs[what] = _timed_solve(lambda: gcr_solve(a, b, outer, precond=m.apply), b,
+                                  independent_relres, f"checkpoint {what}")
+    check(runs["original"]["iters"] == runs["loaded"]["iters"],
+          "the loaded hierarchy takes the original's outer iterations")
+    basis_gb = 2 * 4 * mgp.q_field.re.numel() / 1e9
+    emit("checkpoint", t1, card=card, lattice=list(mesh.dims), block=MG_BLOCK,
+         n_nullvecs=MG_NULLVECS, file_mb=nbytes / 1e6, basis_gb=basis_gb, save_s=save_s,
+         load_s=load_s, estimate_32_save_s=16 * save_s, estimate_32_load_s=16 * load_s,
+         estimate_32_basis_gb=16 * basis_gb, runs=runs)
+    return runs["loaded"]["launches"]
+
+
+class _World1:
+    """A one-process NCCL group (world size 1) for the duration of a block;
+    ``comm`` is its ``TorchDistComm`` on a one-rank ``t`` grid."""
+
+    def __init__(self, dev):
+        self.dev = dev
+
+    def __enter__(self):
+        import tempfile
+
+        from mgpgcr_tpu_torch.parallel import TorchDistComm, init_distributed, make_shard_grid
+
+        self._tmp = tempfile.TemporaryDirectory()
+        init_distributed(f"file://{self._tmp.name}/rendezvous", 1, 0, device=self.dev)
+        self.comm = TorchDistComm(make_shard_grid((1,), ("t",), device=self.dev), device=self.dev)
+        return self
+
+    def __exit__(self, *exc):
+        import torch
+
+        backend = torch.distributed.get_backend()
+        torch.distributed.destroy_process_group()
+        self._tmp.cleanup()
+        check(backend == "nccl", f"world-1 group on {backend}")
+
+
+def shard_kernel_parity(comm, mgp, gen, axis_z) -> list:
+    """B10, B11, B14 and B15 on this rank's shard of a sharded MG (the shard
+    shapes the mg_dist paths give them), each against its plain version;
+    returns (kernel, case, (rel, abs), tol) for the parity record."""
+    import torch
+
+    from mgpgcr_tpu_torch import cplx
+    from mgpgcr_tpu_torch.kernels import transfer
+    from mgpgcr_tpu_torch.kernels.dslash_dist import dslash_dist, dslash_dist_plain, psi_ghosts
+    from mgpgcr_tpu_torch.kernels.gcr_dslash_dist import (
+        gcr_stream_step_dist, gcr_stream_step_dist_plain, step_ghosts,
+    )
+
+    d = mgp.a.d
+    lm, dev = d.local_mesh, d.device
+    tag = f"shard {lm.spacetime_dims}"
+    fshape = d.field_shape
+    x = cplx.random(gen, fshape, torch.float32, dev)
+    lbm = mgp.geom.local_block_map()
+    nc = mgp.q_field.shape[0] * lbm.n_blocks
+    xc = cplx.random(gen, (nc,), torch.float32, dev)
+    errs = [("restrict", tag, rel_err(transfer.restrict(mgp.q_field, lbm, x),
+                                      transfer.restrict_plain(mgp.q_field, lbm, x)), FIELD_TOL),
+            ("prolong", tag, rel_err(transfer.prolong(mgp.q_field, lbm, xc, x, 0.7),
+                                     transfer.prolong_plain(mgp.q_field, lbm, xc, x, 0.7)),
+             FIELD_TOL)]
+    kt = torch.tensor(K, dtype=torch.complex64, device=dev)
+    g = psi_ghosts(x, comm, "t", axis_z, True, d.ghost_links)
+    errs.append(("dslash_dist", tag, rel_err(dslash_dist(d.links, x, lm, g, kt),
+                                             dslash_dist_plain(d.links, x, lm, g, kt)), FIELD_TOL))
+    S = RESTART
+    aps = cplx.random(gen, (S,) + fshape, torch.float32, dev)
+    alpha = torch.tensor(0.3 - 0.2j, dtype=torch.complex64, device=dev)
+    for lim in (1, S):
+        gs = step_ghosts(x, aps, alpha, lim, comm, "t", axis_z, True, d.ghost_links)
+        out = gcr_stream_step_dist(d.links, x, aps, alpha, kt, lim, lm, gs)
+        pl = gcr_stream_step_dist_plain(d.links, x, aps, alpha, kt, lim, lm, gs)
+        errs += [("gcr_stream_step_dist", f"{tag} r'/lim={lim}", rel_err(out[0], pl[0]),
+                  FIELD_TOL),
+                 ("gcr_stream_step_dist", f"{tag} az/lim={lim}", rel_err(out[1], pl[1]),
+                  FIELD_TOL),
+                 ("gcr_stream_step_dist", f"{tag} r2/lim={lim}", rel_err(out[2], pl[2]),
+                  DOT_TOL)]
+    return errs
+
+
+def _mg_dist_rank(comm, canon, mesh, b, params, outer, axis_z, parity: bool):
+    """One rank of a sharded MG run: the setup (phase seconds), a warm-up
+    solve and a timed one with the launch counts set to 0 just before and
+    read just after (reset and read by rank 0 between barriers, so that no
+    rank launches while they are read), and, with
+    ``parity``, the shard kernels against their plain versions."""
+    import torch
+
+    from mgpgcr_tpu_torch import (
+        DiracOperator, ShardLocalWilsonDirac, kernels, mg_gcr_solve_sharded, setup_mg_sharded,
+        shard_field,
+    )
+
+    d = ShardLocalWilsonDirac.build(canon, mesh, comm, "t", axis_z, compress=True,
+                                    antiperiodic_t=True)
+    a = DiracOperator(d, K)
+    timings = {}
+    torch.cuda.synchronize()
+    comm.barrier()
+    if comm.rank == 0:
+        kernels.reset_launches()
+    comm.barrier()
+    s0 = time.perf_counter()
+    mgp = setup_mg_sharded(torch.Generator(device=comm.device).manual_seed(3), a, params,
+                           timings=timings)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - s0
+    comm.barrier()
+    setup_counts = kernels.launch_counts() if comm.rank == 0 else None
+    comm.barrier()
+    bl = shard_field(b, comm.grid, comm.rank, "t", axis_z)
+    mg_gcr_solve_sharded(bl, outer, mgp)  # warm-up
+    torch.cuda.synchronize()
+    comm.barrier()
+    if comm.rank == 0:
+        kernels.reset_launches()
+    comm.barrier()
+    s0 = time.perf_counter()
+    res = mg_gcr_solve_sharded(bl, outer, mgp)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - s0
+    comm.barrier()
+    counts = kernels.launch_counts() if comm.rank == 0 else None
+    comm.barrier()
+    errs = shard_kernel_parity(comm, mgp, torch.Generator(device=comm.device).manual_seed(
+        40 + comm.rank), axis_z) if parity else []
+    return dict(res=res, wall=wall, setup_s=setup_s, timings=timings, counts=counts,
+                setup_counts=setup_counts, errs=errs)
+
+
+def mg_dist_phase(canon, mesh, dev, card: str, mg_iters: int) -> tuple[list, list]:
+    """The sharded MG setup and the distributed MG-preconditioned solve
+    (``setup_mg_sharded``, ``mg_gcr_solve_sharded``; outer restart-5 fused
+    GCR in restart cycles, GCR(4) fused smoother on the shards):
+
+    - a world-size-1 NCCL group at 32^4 with the MG cell's block 8 and 6
+      null vectors, within 1 outer iteration of the single-device MG cell
+      (``mg_iters``, whose smoother runs on bf16 links; this one's on the
+      f32 links: the JAX package's sharded cycle has no cheaper smoother);
+    - the (2, 2) and (4, 1) grids of thread ranks on the untiled 16^4 field
+      with block 4 and 6 null vectors (8 does not divide the (4, 1) grid's
+      T = 4 shards), each within 1 outer iteration of the single-device
+      16^4 MG solve with the same parameters and start vector.
+
+    Setup seconds by phase, host ms per outer iteration (rank 0's clock),
+    launches, the independent f64 residual of the gathered x; B10, B11,
+    B14 and B15 against their plain versions at every shard shape. Returns
+    (launch counts of setups and solves, parity errors)."""
+    import torch
+
+    from mgpgcr_tpu_torch import (
+        GCRParams, MGParams, gather_field, gcr_solve, make_shard_grid, run_spmd, setup_mg,
+    )
+
+    t1 = time.perf_counter()
+    outer = GCRParams(tol=1e-6, max_iter=200, restart=RESTART, fused=True, unroll="cycles")
+    out, all_counts, errs = {}, [], []
+    solve_kernels = ("dslash_dist", "gcr_stream_step_dist", "update_r", "ap_update",
+                     "basis_flush", "restrict", "prolong")
+
+    def record(tag, ranks, x, independent_relres, single_iters):
+        r0 = ranks[0]
+        res = r0["res"]
+        check(all(rk["res"].n_iters == res.n_iters for rk in ranks), f"{tag}: ranks agree")
+        check(res.converged, f"{tag} converged")
+        rel = independent_relres(x)
+        check(rel <= 2e-6, f"{tag} independent residual {rel} <= 2e-6")
+        check(abs(res.n_iters - single_iters) <= 1,
+              f"{tag}: outer iterations {res.n_iters} within 1 of the single-device "
+              f"{single_iters}")
+        counts = r0["counts"]
+        missing = [k for k in solve_kernels if counts[k] == 0]
+        check(not missing and counts["dslash_apply"] == 0 and counts["gcr_stream_step"] == 0,
+              f"{tag}: {missing} not launched, or K1/K2 launched: {counts}")
+        check(r0["setup_counts"]["dslash_dist"] > 0 and r0["setup_counts"]["restrict"] > 0,
+              f"{tag}: the setup ran B14 and B10")
+        all_counts.extend([counts, r0["setup_counts"]])
+        for rk in ranks:
+            errs.extend(rk["errs"])
+        out[tag] = {"outer_iters": res.n_iters, "single_device_outer_iters": single_iters,
+                    "relres": res.final_relres, "independent_relres_f64": rel,
+                    "setup_seconds": r0["setup_s"], "setup_phase_seconds": r0["timings"],
+                    "seconds": r0["wall"], "ms_per_outer_iter": 1e3 * r0["wall"] / res.n_iters,
+                    "launches": {k: v for k, v in counts.items() if v},
+                    "setup_launches": {k: v for k, v in r0["setup_counts"].items() if v}}
+
+    # world-1 NCCL at 32^4, the MG cell's parameters
+    t, z, y, xx = mesh.spacetime_dims
+    b = cplx_random(dev, (4, 3, t, z, y * xx), 7)
+    independent_relres = independent_residual(canon, mesh, b)
+    params = MGParams(block=MG_BLOCK, n_nullvecs=MG_NULLVECS)
+    with _World1(dev) as w:
+        rk = _mg_dist_rank(w.comm, canon, mesh, b, params, outer, None, True)
+    record("nccl_world1_32", [rk], rk["res"].x, independent_relres, mg_iters)
+    del rk
+
+    # thread grids at 16^4 against the single-device 16^4 solve
+    canon16, mesh16, a16, b16, indep16 = _mg16(dev)
+    params16 = MGParams(block=MG_DIST_BLOCK, n_nullvecs=MG_NULLVECS)
+    single = setup_mg(torch.Generator(device=dev).manual_seed(3), a16, mesh16, params16)
+    ref = _timed_solve(lambda: gcr_solve(a16, b16, outer, precond=single.apply), b16, indep16,
+                       "single-device 16^4 MG")
+    del single
+    for sizes in MG_DIST_GRIDS:
+        grid = make_shard_grid(sizes, ("t", "z"), device=dev)
+        ranks = run_spmd(grid, lambda comm: _mg_dist_rank(comm, canon16, mesh16, b16, params16,
+                                                          outer, "z", True))
+        x = gather_field([rk["res"].x for rk in ranks], grid, "t", "z")
+        record(f"thread_{sizes[0]}x{sizes[1]}_16", ranks, x, indep16, ref["iters"])
+        del ranks
+    emit("mg_dist", t1, card=card, k=K, tol=1e-6, restart=RESTART, unroll="cycles",
+         block_32=MG_BLOCK, block_16=MG_DIST_BLOCK, n_nullvecs=MG_NULLVECS,
+         single_device_16=ref, **out)
+    return all_counts, errs
+
+
+def cplx_random(dev, shape, seed: int):
+    """A seeded f32 random CF on ``dev``."""
+    import torch
+
+    from mgpgcr_tpu_torch import cplx
+
+    return cplx.random(torch.Generator(device=dev).manual_seed(seed), shape, torch.float32, dev)
+
+
+def eo_dist_phase(canon, mesh, dev, card: str) -> list:
+    """The even-odd Schur solve on (t, z) shards (``eo_sharded``, the t and z
+    hops exchanging planes through the communicator, the Schur GCR's dots
+    summed over ranks): a (2, 2) grid of thread ranks on the untiled 16^4
+    field and a world-size-1 NCCL group at 32^4, each against ``eo_solve``
+    on one device (iterations equal, x within 1e-5 of scale), x checked
+    against the full operator in f64. Returns the launch counts."""
+    import torch
+
+    from mgpgcr_tpu_torch import (
+        CudaWilsonDirac, EvenOddWilson, GCRParams, LatticeMesh, eo_sharded, eo_solve,
+        eo_solve_grid, make_shard_grid,
+    )
+
+    t1 = time.perf_counter()
+    params = GCRParams(tol=1e-6, max_iter=500, restart=RESTART, fused=True)
+    out, all_counts = {}, []
+    import numpy as np
+
+    with np.load(ROOT / "data" / "links_16_b6.0_s0.npz") as f:
+        canon16 = (f["re"], f["im"])
+    cases = (("thread_2x2_16", canon16, LatticeMesh((16, 16, 16, 16, 4, 3))),
+             ("nccl_world1_32", canon, mesh))
+    for tag, cn, m in cases:
+        d = CudaWilsonDirac.build(cn, m, antiperiodic_t=True, device=dev)
+        eo = EvenOddWilson.from_dirac(d)
+        b = cplx_random(dev, d.field_shape, 7)
+        indep = independent_residual(cn, m, b)
+        got = {}
+
+        def kept(key, fn):
+            def run():
+                got[key] = fn()
+                return got[key]
+            return run
+
+        ref = _timed_solve(kept("ref", lambda: eo_solve(eo, K, b, params)), b, indep,
+                           f"eo {tag} single")
+        if tag.startswith("thread"):
+            grid = make_shard_grid((2, 2), ("t", "z"), device=dev)
+            run = _timed_solve(kept("sharded", lambda: eo_solve_grid(eo, K, b, params, grid)), b,
+                               indep, f"eo {tag}")
+        else:
+            with _World1(dev) as w:
+                local = eo_sharded(eo, w.comm, "t", None)
+                run = _timed_solve(kept("sharded", lambda: eo_solve(local, K, b, params)), b,
+                                   indep, f"eo {tag}")
+        xerr = rel_err(got["sharded"].x, got["ref"].x)[0]
+        check(run["iters"] == ref["iters"],
+              f"eo {tag}: Schur iterations {run['iters']} == eo_solve's {ref['iters']}")
+        check(xerr <= 1e-5, f"eo {tag}: x within 1e-5 of the single-device x: {xerr}")
+        check(all(run["launches"][k] > 0 for k in ("update_r", "beta_dots", "ap_update",
+                                                   "basis_flush")),
+              f"eo {tag}: B2, B3, K3, K4 launched: {run['launches']}")
+        all_counts.append(run["launches"])
+        out[tag] = {"sharded": run, "single_device": ref, "x_rel_diff": xerr}
+        del d, eo
+    emit("eo_dist", t1, card=card, k=K, tol=1e-6, restart=RESTART, **out)
+    return all_counts
+
+
+def graft_phase(dev, card: str) -> dict:
+    """``__graft_entry_cuda__``: ``entry()``'s solve step on the card (8^4,
+    K1), then ``dryrun_multichip(4)``: the fused sharded solve against the
+    single-device one, the sharded MG, the sharded even-odd solve, the
+    canonical operator over (t, z, y) and stacked right-hand sides over a
+    data-parallel axis, four thread ranks sharing the card. Returns the
+    launch counts of the entry step and the dry run."""
+    import importlib
+
+    import torch
+
+    from mgpgcr_tpu_torch import kernels
+
+    t1 = time.perf_counter()
+    graft = importlib.import_module("__graft_entry_cuda__")
+    fn, args = graft.entry()
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    x, relres = fn(*args)
+    torch.cuda.synchronize()
+    entry_counts = kernels.launch_counts()
+    check(x.re.is_cuda and bool(torch.isfinite(x.re).all()) and relres < 1.0,
+          f"entry step on the card: relres {relres}")
+    check(entry_counts["dslash_apply"] > 0, f"entry ran K1: {entry_counts}")
+    kernels.reset_launches()
+    s0 = time.perf_counter()
+    graft.dryrun_multichip(4)
+    torch.cuda.synchronize()
+    dry_s = time.perf_counter() - s0
+    dry_counts = kernels.launch_counts()
+    check(dry_counts["gcr_stream_step_dist"] > 0 and dry_counts["dslash_dist"] > 0,
+          f"the dry run ran B14 and B15: {dry_counts}")
+    emit("graft", t1, card=card, entry_relres=relres, dryrun_seconds=dry_s,
+         entry_launches={k: v for k, v in entry_counts.items() if v},
+         dryrun_launches={k: v for k, v in dry_counts.items() if v})
+    return {k: entry_counts[k] + dry_counts[k] for k in entry_counts}
+
+
+
 def main() -> int:
     import torch
 
@@ -2328,9 +2839,19 @@ def main() -> int:
     eo_mg_counts = eo_mg_phase(dev, card, note, schur_ms)
     gauge_counts = gauge_phase(dev, card)
     ingest_counts = ingest_phase(dev, card, note)
+
+    # ---- the command line, checkpoints, sharded MG and even-odd, entry --------
+    cli_counts = cli_phase(card)
+    checkpoint_counts = checkpoint_phase(dev, card)
+    mg_dist_counts, shard_errs = mg_dist_phase(canon, mesh, dev, card, mg_iters)
+    for kname, what, err, tol in shard_errs:
+        note(kname, what, err, tol)
+    eo_dist_counts = eo_dist_phase(canon, mesh, dev, card)
+    graft_counts = graft_phase(dev, card)
     path_counts = (plain_counts, mg_counts, loop_counts, record_counts, three_counts, mu_counts,
                    *dist_counts, refine_counts, eigen_counts, eo_counts, eo_mg_counts,
-                   gauge_counts, ingest_counts)
+                   gauge_counts, ingest_counts, *cli_counts, checkpoint_counts,
+                   *mg_dist_counts, *eo_dist_counts, graft_counts)
 
     rows = []
     for kname, (short, replaces, source) in REPLACES.items():

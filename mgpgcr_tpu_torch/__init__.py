@@ -17,13 +17,26 @@ solve: mixed-precision refinement to complex128 residuals
 the half mesh (``EvenOddWilson``, ``eo_solve``, ``setup_eo_mg``), the
 quenched heat-bath generator (``gauge.thermalized_links``), and matrix
 ingestion (``io/``, ``CSRMatrix``, ``detect_wilson``,
-``wilson_operator_from_csr``). Entry
-points run on CUDA unless the caller passes ``device="cpu"``; CPU tensors
-take each kernel's plain PyTorch version. The JAX package ``mgpgcr_tpu``
-is the reference this package is held against.
+``wilson_operator_from_csr``). The decomposed paths: the sharded MG setup
+and the distributed MG-preconditioned solve (``setup_mg_sharded``,
+``mg_gcr_solve_sharded``, ``mg_gcr_solve_grid``) and the sharded even-odd
+solve (``eo_sharded``, ``eo_solve_grid``). The driver: run configs
+(``config.py``), MG checkpoints (``save_mg_setup`` / ``load_mg_setup`` and
+their sharded forms, the JAX package's file format), run logs, traces and
+profiling (``utils/``), and the command line ``python -m mgpgcr_tpu_torch``.
+Entry points run on CUDA unless the caller passes ``device="cpu"``; CPU
+tensors take each kernel's plain PyTorch version. The JAX package
+``mgpgcr_tpu`` is the reference this package is held against.
 """
 
 from mgpgcr_tpu_torch import cplx, fields, gauge
+from mgpgcr_tpu_torch.config import ProblemConfig, RunConfig, load_config, save_config
+from mgpgcr_tpu_torch.io.checkpoint import (
+    load_mg_setup,
+    load_mg_setup_sharded,
+    save_mg_setup,
+    save_mg_setup_sharded,
+)
 from mgpgcr_tpu_torch.gauge import thermalized_links, thermalized_links_cf
 from mgpgcr_tpu_torch.mesh import BlockMap, LatticeMesh
 from mgpgcr_tpu_torch.ops.base import FunctionOperator
@@ -74,7 +87,15 @@ from mgpgcr_tpu_torch.parallel import (
     shard_field,
 )
 from mgpgcr_tpu_torch.solvers.eigen import EigenResult, smallest_eigenpairs
-from mgpgcr_tpu_torch.solvers.eo import eo_half_mesh, eo_mg_params, eo_solve, setup_eo_mg
+from mgpgcr_tpu_torch.solvers.eo import (
+    eo_field_sharding,
+    eo_half_mesh,
+    eo_mg_params,
+    eo_sharded,
+    eo_solve,
+    eo_solve_grid,
+    setup_eo_mg,
+)
 from mgpgcr_tpu_torch.solvers.gcr import GCRSolver, gcr_solve, gcr_solve_eager, gcr_solve_jit
 from mgpgcr_tpu_torch.solvers.gcr_dist import gcr_solve_grid, gcr_solve_sharded
 from mgpgcr_tpu_torch.solvers.mg import (
@@ -82,6 +103,13 @@ from mgpgcr_tpu_torch.solvers.mg import (
     mg_from_numpy,
     setup_mg,
     setup_mg_from,
+)
+from mgpgcr_tpu_torch.solvers.mg_dist import (
+    ShardedMGPreconditioner,
+    ShardLocalCoarseStencil,
+    mg_gcr_solve_grid,
+    mg_gcr_solve_sharded,
+    setup_mg_sharded,
 )
 from mgpgcr_tpu_torch.solvers.params import GCRParams, MGParams
 from mgpgcr_tpu_torch.solvers.power import inverse_power_vectors
@@ -152,6 +180,22 @@ __all__ = [
     "eo_half_mesh",
     "eo_mg_params",
     "setup_eo_mg",
+    "eo_sharded",
+    "eo_field_sharding",
+    "eo_solve_grid",
+    "ShardedMGPreconditioner",
+    "ShardLocalCoarseStencil",
+    "setup_mg_sharded",
+    "mg_gcr_solve_sharded",
+    "mg_gcr_solve_grid",
+    "ProblemConfig",
+    "RunConfig",
+    "load_config",
+    "save_config",
+    "save_mg_setup",
+    "load_mg_setup",
+    "save_mg_setup_sharded",
+    "load_mg_setup_sharded",
     "gauge",
     "thermalized_links",
     "thermalized_links_cf",

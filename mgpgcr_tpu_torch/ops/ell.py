@@ -30,6 +30,18 @@ class ELLOperator(LinearOperator):
         return (self.vals.shape[0], self.n_cols)
 
     @property
+    def device(self) -> torch.device:
+        return self.cols.device
+
+    @property
+    def dtype(self) -> torch.dtype:
+        """The real dtype of the fields it applies to."""
+        v = self.vals
+        if cplx.is_cf(v):
+            return v.dtype
+        return torch.float64 if v.dtype == torch.complex128 else torch.float32
+
+    @property
     def k_max(self) -> int:
         return self.vals.shape[1]
 

@@ -39,6 +39,7 @@ from mgpgcr_tpu_torch import cplx
 from mgpgcr_tpu_torch.mesh import LatticeMesh
 from mgpgcr_tpu_torch.ops.base import LinearOperator
 from mgpgcr_tpu_torch.ops.wilson_slab import accumulate_half, colour_mul, project_half
+from mgpgcr_tpu_torch.parallel.halo import periodic_shift
 
 
 @functools.lru_cache(maxsize=64)
@@ -95,6 +96,12 @@ class EvenOddWilson:
     links_e: cplx.CF
     links_o: cplx.CF
     mesh: LatticeMesh
+    # on one shard of a lattice split over (t, z) (``solvers/eo.py::
+    # eo_sharded``): ``mesh`` is the shard's, the t and z hops take their
+    # boundary planes from the ring neighbours through ``comm``
+    comm: object = None
+    axis_t: str | None = None
+    axis_z: str | None = None
 
     @staticmethod
     def from_full(links_slab: cplx.CF, mesh: LatticeMesh) -> "EvenOddWilson":
@@ -136,7 +143,7 @@ class EvenOddWilson:
 
     @property
     def half_dim(self) -> int:
-        """Half the full operator's dimension."""
+        """Half the full operator's dimension (of the shard's, when split)."""
         return self.mesh.size // 2
 
     @property
@@ -152,10 +159,9 @@ class EvenOddWilson:
         """The neighbour's value on compact parity fields; v is (3, T, Z, V/2)."""
         t, z, y, xx = self.mesh.spacetime_dims
         xh = xx // 2
-        if mu == 0:
-            return cplx.roll(v, -1 if fwd else 1, v.ndim - 3)
-        if mu == 1:
-            return cplx.roll(v, -1 if fwd else 1, v.ndim - 2)
+        if mu in (0, 1):
+            return periodic_shift(v, v.ndim - 3 + mu, -1 if fwd else 1, self.comm,
+                                  self.axis_t if mu == 0 else self.axis_z)
         ax = v.ndim - 1
         if mu == 2:
             return cplx.roll(v, -xh if fwd else xh, ax)

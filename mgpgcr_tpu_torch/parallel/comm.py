@@ -79,6 +79,11 @@ class Comm:
         """The sum over ranks of a real or complex tensor, on every rank."""
         raise NotImplementedError
 
+    def all_gather(self, x) -> list:
+        """Every rank's ``x`` (a tensor or CF of one shape on every rank),
+        as a list indexed by rank, on every rank (``lax.all_gather``)."""
+        raise NotImplementedError
+
     def barrier(self) -> None:
         raise NotImplementedError
 
@@ -91,6 +96,14 @@ class _Mailbox:
     def __init__(self, n: int, timeout: float):
         self.barrier = threading.Barrier(n, timeout=timeout)
         self.rows = ([None] * n, [None] * n)
+
+
+def _own(x):
+    """A contiguous copy of a tensor or CF that a rank deposits for others:
+    the depositor may overwrite its own tensor after the round."""
+    if cplx.is_cf(x):
+        return cplx.CF(_own(x.re), _own(x.im))
+    return x.clone(memory_format=torch.contiguous_format)
 
 
 class ThreadComm(Comm):
@@ -110,13 +123,12 @@ class ThreadComm(Comm):
         return list(row)
 
     def exchange(self, items) -> list:
-        def own(v):
-            return v.clone(memory_format=torch.contiguous_format)
-
-        posts = self._all([cplx.CF(own(x.re), own(x.im)) if cplx.is_cf(x) else own(x)
-                           for x, _, _ in items])
+        posts = self._all([_own(x) for x, _, _ in items])
         return [posts[self.neighbour(axis, step)][i].to(self.device)
                 for i, (_, axis, step) in enumerate(items)]
+
+    def all_gather(self, x) -> list:
+        return [p.to(self.device) for p in self._all(_own(x))]
 
     def allsum(self, x: torch.Tensor) -> torch.Tensor:
         parts = [p.to(self.device) for p in self._all(x)]
@@ -199,6 +211,14 @@ class TorchDistComm(Comm):
             for req in dist.batch_isend_irecv(ops):
                 req.wait()
         return [cplx.CF(g[0], g[1]) if cplx.is_cf(x) else g for g, (x, _, _) in zip(got, items)]
+
+    def all_gather(self, x) -> list:
+        if cplx.is_cf(x):
+            return [cplx.CF(p[0], p[1]) for p in self.all_gather(torch.stack((x.re, x.im)))]
+        y = torch.view_as_real(x) if x.is_complex() else x
+        parts = [torch.empty_like(y) for _ in range(self.size)]
+        self._dist.all_gather(parts, y.contiguous(), group=self._group)
+        return [torch.view_as_complex(p) if x.is_complex() else p for p in parts]
 
     def allsum(self, x: torch.Tensor) -> torch.Tensor:
         y = x.clone()

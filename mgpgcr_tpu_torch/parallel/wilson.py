@@ -22,18 +22,23 @@ from mgpgcr_tpu_torch.parallel.halo import periodic_shift
 from mgpgcr_tpu_torch.parallel.mesh import cut_shard
 
 
-def spacetime_axis_names(grid, mesh: LatticeMesh) -> tuple:
-    """Grid axes in order onto lattice dims 0, 1, ...: one entry (a name or
-    None) per spacetime dim."""
-    names = grid.axis_names
+def spacetime_axis_names(grid, mesh: LatticeMesh, batch_axis: str | None = None) -> tuple:
+    """Grid axes in order, ``batch_axis`` left out, onto lattice dims 0, 1,
+    ...: one entry (a name or None) per spacetime dim."""
+    names = tuple(n for n in grid.axis_names if n != batch_axis)
     return tuple(names[i] if i < len(names) else None for i in range(mesh.n_spacetime))
 
 
-def shard_lattice_field(x, grid, rank: int, mesh: LatticeMesh):
-    """This rank's block of a lattice-shaped (..., T, Z, Y, X, 4, 3) field."""
-    names = spacetime_axis_names(grid, mesh)
+def shard_lattice_field(x, grid, rank: int, mesh: LatticeMesh, batch_axis: str | None = None):
+    """This rank's block of a lattice-shaped (..., T, Z, Y, X, 4, 3) field;
+    with ``batch_axis``, of a stack (B, T, Z, Y, X, 4, 3) whose B right-hand
+    sides are split over that grid axis too."""
+    names = spacetime_axis_names(grid, mesh, batch_axis)
     nd = len(mesh.dims)
-    return cut_shard(x, grid, rank, {n: mu - nd for mu, n in enumerate(names)})
+    dims = {n: mu - nd for mu, n in enumerate(names)}
+    if batch_axis is not None:
+        dims[batch_axis] = -nd - 1
+    return cut_shard(x, grid, rank, dims)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -49,10 +54,13 @@ class ShardedWilsonDirac(LinearOperator):
     axis_names: tuple  # per spacetime dim: grid axis name or None
 
     @staticmethod
-    def build(links, mesh: LatticeMesh, comm) -> "ShardedWilsonDirac":
+    def build(links, mesh: LatticeMesh, comm, batch_axis: str | None = None
+              ) -> "ShardedWilsonDirac":
         """``links``: global canonical (4, T, Z, Y, X, 3, 3) complex links
-        (ndarray or tensor)."""
-        names = spacetime_axis_names(comm.grid, mesh)
+        (ndarray or tensor). ``batch_axis`` names a grid axis that splits
+        stacked right-hand sides instead of the lattice (the JAX package's
+        data-parallel axis): its ranks hold the same links."""
+        names = spacetime_axis_names(comm.grid, mesh, batch_axis)
         local = cut_shard(torch.as_tensor(links), comm.grid, comm.rank,
                           {n: 1 + mu for mu, n in enumerate(names)})
         return ShardedWilsonDirac(local.to(comm.device), mesh, comm, names)

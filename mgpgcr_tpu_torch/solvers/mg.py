@@ -298,17 +298,26 @@ def stencil_from_probes(measure, bpd):
     return slots
 
 
-def galerkin_coarse_blocks(a, basis: cplx.CF, block_map: BlockMap, layout: str = "tpu"):
+def galerkin_coarse_blocks(a, basis: cplx.CF, block_map: BlockMap, layout: str = "tpu",
+                           grid_bpd=None, block_offset=None):
     """Phase-probed Galerkin assembly: (nb, 2*ndim+1, ne, ne) complex stencil
     blocks and the neighbour table, from (2*ndim+1) x ne operator
     applications whatever the block count. ``basis`` is the layout's basis:
     q_field ("tpu") or the blocked q ("flat"). Each probe activates every
     block's basis column e at once, modulated by chi_p(B) = prod_mu
     omega_mu^(p_mu B_mu), applies A and restricts; columns go one at a
-    time, so the transient is two fields."""
+    time, so the transient is two fields.
+
+    On one shard of a decomposed lattice (``solvers/mg_dist.py``) ``a`` is
+    the shard's operator, ``block_map`` the shard's blocking, ``grid_bpd``
+    the global blocks per dim and ``block_offset`` the global coordinates of
+    the shard's first block: the phases are taken at global block
+    coordinates, and the rows are the shard's blocks."""
     ne = basis.shape[0]
     nb = block_map.n_blocks
-    bpd = block_map.blocks_per_dim
+    bpd_loc = block_map.blocks_per_dim
+    bpd = bpd_loc if grid_bpd is None else tuple(grid_bpd)
+    offset = (0,) * len(bpd) if block_offset is None else tuple(block_offset)
     dev = basis.device
     cdt = cplx.complex_dtype(basis.dtype)
     column = _column_fn(basis, block_map, layout)
@@ -316,8 +325,9 @@ def galerkin_coarse_blocks(a, basis: cplx.CF, block_map: BlockMap, layout: str =
     def measure(p):
         """M_p[r; f, e] = sum_b chi_p(B_b) <phi_{r,f}, A phi_{b,e}>, un-phased
         by conj(chi_p(B_r)): (nb, ne_row, ne_col)."""
-        grids = np.indices(bpd)
-        theta = sum(2.0 * np.pi * p[mu] * grids[mu] / bpd[mu] for mu in range(len(bpd)))
+        grids = np.indices(bpd_loc)
+        theta = sum(2.0 * np.pi * p[mu] * (grids[mu] + offset[mu]) / bpd[mu]
+                    for mu in range(len(bpd)))
         chi = torch.as_tensor(np.exp(1j * np.asarray(theta, np.float64)).reshape(-1)).to(dev, cdt)
         cols = []
         for e in range(ne):
