@@ -100,7 +100,9 @@ from mgpgcr_tpu_torch.solvers.gcr import GCRSolver, gcr_solve, gcr_solve_eager, 
 from mgpgcr_tpu_torch.solvers.gcr_dist import gcr_solve_grid, gcr_solve_sharded
 from mgpgcr_tpu_torch.solvers.mg import (
     MGPreconditioner,
+    coarse_cycle_counts,
     mg_from_numpy,
+    reset_coarse_cycle_counts,
     setup_mg,
     setup_mg_from,
 )
@@ -149,6 +151,8 @@ __all__ = [
     "gcr_solve_eager",
     "gcr_solve_jit",
     "MGPreconditioner",
+    "coarse_cycle_counts",
+    "reset_coarse_cycle_counts",
     "setup_mg",
     "setup_mg_from",
     "mg_from_numpy",

@@ -1,8 +1,10 @@
 """Wrappers of the hand-written CUDA kernels (``csrc/``) with their plain
 PyTorch versions. A wrapper launches its kernel for CUDA tensors and runs
-the plain version for CPU tensors; ``<wrapper>.launches`` counts kernel
-launches only."""
+the plain version for CPU tensors; ``<wrapper>.launches`` counts the
+kernels that ran, whether the wrapper launched them or a CUDA graph
+replayed them (``credit_launches``)."""
 
+from mgpgcr_tpu_torch.kernels import _lib
 from mgpgcr_tpu_torch.kernels.dslash import dslash_apply, dslash_mu
 from mgpgcr_tpu_torch.kernels.dslash_dist import dslash_dist
 from mgpgcr_tpu_torch.kernels.gcr_dslash import gcr_stream_step, gcr_z_step
@@ -32,3 +34,11 @@ def reset_launches() -> None:
 
 def launch_counts() -> dict[str, int]:
     return {w.__name__: w.launches for w in WRAPPERS}
+
+
+def credit_launches(counts: dict[str, int]) -> None:
+    """Add ``counts`` (wrapper name -> launches) to the wrappers' counts:
+    the kernels of a CUDA graph replay, which calls no wrapper, or, negated,
+    the launches counted while capturing one, which runs no kernel."""
+    for w in WRAPPERS:
+        _lib.count(w, counts.get(w.__name__, 0))

@@ -143,10 +143,10 @@ def launch(name: str, *args) -> None:
         raise RuntimeError(f"{name}: CUDA error {rc} ({msg})")
 
 
-def count(wrapper) -> None:
-    """One more launch of ``wrapper``'s kernel; safe from several threads."""
+def count(wrapper, n: int = 1) -> None:
+    """n more launches of ``wrapper``'s kernel; safe from several threads."""
     with _count_lock:
-        wrapper.launches += 1
+        wrapper.launches += n
 
 
 def stream(t) -> int:

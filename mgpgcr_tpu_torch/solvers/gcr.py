@@ -19,8 +19,10 @@ Semantics kept from the reference (and from the JAX package):
   transforming A and rhs; alpha = <Ap, r> / <Ap, Ap>; x0 = 0 by default.
 
 Forms: the generic loop (``gcr_solve`` with ``fused=False``) on any
-operator; and, through the hand-written kernels, the restart-cycle z-basis
-form (``_gcr_solve_fused_cycles``) and the loop form on direction stacks
+operator, whose state and steps are ``GenericLoop`` (one restart cycle
+of it is what the MG V-cycle's coarse solve replays as a CUDA graph);
+and, through the hand-written kernels, the restart-cycle z-basis form
+(``_gcr_solve_fused_cycles``) and the loop form on direction stacks
 (``_gcr_solve_fused``: truncation, ``residual_refresh``, restart > 16,
 ``unroll="loop"``, and a preconditioner under ``unroll="auto"``), chosen
 as the JAX package chooses. ``gcr_solve_eager`` runs the generic loop or
@@ -139,84 +141,157 @@ def gcr_solve(
 
 def _gcr_solve_generic(a, rhs, params: GCRParams, precond, x0, eager: bool = False, comm=None):
     """The generic loop on stacks of ``storage_size`` directions (reference
-    GCR.h:222-288). ``eager`` gives ``gcr_solve_eager``'s semantics: the
-    host reads ||r||^2 every iteration (so no iteration is masked), the
-    solve stops before an iteration whose ||ap||^2 is 0 (z in the span of
-    the stored directions), residual_refresh is ignored and the history
-    has ``n_iters + 1`` entries."""
-    apply_a = a.apply if hasattr(a, "apply") else a
-    rdtype, dev = rhs.dtype, rhs.device
-    S = params.storage_size
-    max_iter = params.max_iter
-    restart = params.restart if params.restart else max_iter + 1
-
-    x = cplx.zeros_like(rhs) if x0 is None else x0
-    r = rhs - apply_a(x) if x0 is not None else rhs
-    rhs_norm2 = _allsum(cplx.abs2_sum(rhs), comm)
-
-    z = precond(r) if precond is not None else r
-    p = z
-    ap = apply_a(p)
-    ps = cplx.stack_zeros(S, p)
-    ps[0] = p
-    aps = cplx.stack_zeros(S, ap)
-    aps[0] = ap
-    ap2 = _allsum(cplx.abs2_sum(ap), comm)
-    ap_norms = torch.zeros(S, dtype=rdtype, device=dev)
-    ap_norms[0] = ap2
-
-    r2 = _allsum(cplx.abs2_sum(r), comm)
-    hist = torch.full((max_iter + 1,), float("nan"), dtype=rdtype, device=dev)
-    it = torch.zeros((), dtype=torch.int64, device=dev)
-    _record(hist, it, torch.ones((), dtype=torch.bool, device=dev), r2, rhs_norm2, rdtype)
-    tol2 = params.tol**2
-    check_every = 1 if eager else (params.restart or _CHECK_EVERY)
-    refresh = 0 if eager else params.residual_refresh
-
-    count = n_body = 0  # iterations since the last restart, and bodies run
-    going = bool(_running(r2, rhs_norm2, tol2, it, max_iter))
+    GCR.h:222-288), driven through :class:`GenericLoop`. ``eager`` gives
+    ``gcr_solve_eager``'s semantics: the host reads ||r||^2 every iteration
+    (so no iteration is masked), the solve stops before an iteration whose
+    ||ap||^2 is 0 (z in the span of the stored directions),
+    residual_refresh is ignored and the history has ``n_iters + 1``
+    entries."""
+    g = GenericLoop(a, rhs, params, precond, x0, comm, eager)
+    g.start()
+    going = bool(g.running())
     while going:
-        if eager and float(ap2) == 0.0:
+        if g.n_body:
+            g.tail()
+        if eager and float(g.ap2) == 0.0:
             break  # stagnation: z in the span of the stored directions
-        n_body += 1
-        active = _running(r2, rhs_norm2, tol2, it, max_iter)
-        it = it + active
-        count += 1
+        g.bodies(min(g.check_every, params.max_iter - g.n_body))
+        going = bool(g.running())
+    hist = g.hist[: g.n_body + 1] if eager else g.hist
+    return _result(g.x, g.r2, g.rhs_norm2, g.tol2, g.it, hist, g.rdtype)
 
-        alpha = _div_real(_allsum(cplx.vdot(ap, r), comm), ap2, rdtype) * active.to(rdtype)
-        x = x + p * alpha
-        r = r - ap * alpha
-        if refresh and n_body % refresh == 0:
-            r = cplx.where(active, rhs - apply_a(x), r)
-        r2 = _allsum(cplx.abs2_sum(r), comm)
-        _record(hist, it, active, r2, rhs_norm2, rdtype)
-        if n_body % check_every == 0 or n_body == max_iter:
-            going = bool(_running(r2, rhs_norm2, tol2, it, max_iter))
-            if not going:
-                break  # the next direction would not be used
 
-        z = precond(r) if precond is not None else r
-        az = apply_a(z)
+class GenericLoop:
+    """The generic loop's state and its steps. ``start`` is the set-up
+    before the loop; ``body`` one iteration up to its convergence check
+    (alpha, x, r, ||r||^2, the history); ``tail`` the rest of it (z = M r,
+    A z, the betas, the new direction, restart clearing and the ring
+    store). The loop is start, body, (tail, body)..., and the host asks
+    ``running()`` every ``check_every`` bodies (every body when ``eager``,
+    which also ignores residual_refresh).
+
+    Every tensor of the recurrence is an attribute (``STATE``), so that
+    ``cycle`` (host check to host check) is a function of this object's
+    tensors: its first call makes them, a later one writes its results
+    back into them. That is the form a CUDA graph can replay
+    (``solvers/mg.py``)."""
+
+    STATE = ("x", "r", "p", "ap", "ps", "aps", "ap2", "ap_norms", "r2", "rhs_norm2", "it",
+             "hist", "going")
+
+    def __init__(self, a, rhs, params: GCRParams, precond=None, x0=None, comm=None,
+                 eager: bool = False):
+        self.apply_a = a.apply if hasattr(a, "apply") else a
+        self.rhs, self.params, self.precond, self.x0, self.comm = rhs, params, precond, x0, comm
+        self.refresh = 0 if eager else params.residual_refresh
+        self.rdtype = rhs.dtype
+        self.restart = params.restart if params.restart else params.max_iter + 1
+        self.check_every = 1 if eager else (params.restart or _CHECK_EVERY)
+        self.tol2 = params.tol**2
+        self.count = self.n_body = 0  # iterations since the last restart, and bodies run
+        self.state = None
+
+    def start(self) -> None:
+        apply_a, rhs, comm, rdtype = self.apply_a, self.rhs, self.comm, self.rdtype
+        S, dev = self.params.storage_size, rhs.device
+        self.x = cplx.zeros_like(rhs) if self.x0 is None else self.x0
+        self.r = rhs - apply_a(self.x) if self.x0 is not None else rhs
+        self.rhs_norm2 = _allsum(cplx.abs2_sum(rhs), comm)
+
+        self.p = self.precond(self.r) if self.precond is not None else self.r
+        self.ap = apply_a(self.p)
+        self.ps = cplx.stack_zeros(S, self.p)
+        self.ps[0] = self.p
+        self.aps = cplx.stack_zeros(S, self.ap)
+        self.aps[0] = self.ap
+        self.ap2 = _allsum(cplx.abs2_sum(self.ap), comm)
+        self.ap_norms = torch.zeros(S, dtype=rdtype, device=dev)
+        self.ap_norms[0] = self.ap2
+
+        self.r2 = _allsum(cplx.abs2_sum(self.r), comm)
+        self.hist = torch.full((self.params.max_iter + 1,), float("nan"), dtype=rdtype,
+                               device=dev)
+        self.it = torch.zeros((), dtype=torch.int64, device=dev)
+        _record(self.hist, self.it, torch.ones((), dtype=torch.bool, device=dev), self.r2,
+                self.rhs_norm2, rdtype)
+        self.count = self.n_body = 0
+
+    def running(self):
+        """The reference's loop condition, as a device bool."""
+        return _running(self.r2, self.rhs_norm2, self.tol2, self.it, self.params.max_iter)
+
+    def body(self) -> None:
+        comm, rdtype = self.comm, self.rdtype
+        self.n_body += 1
+        active = self.running()
+        self.it = self.it + active
+        self.count += 1
+
+        alpha = _div_real(_allsum(cplx.vdot(self.ap, self.r), comm), self.ap2,
+                          rdtype) * active.to(rdtype)
+        self.x = self.x + self.p * alpha
+        self.r = self.r - self.ap * alpha
+        if self.refresh and self.n_body % self.refresh == 0:
+            self.r = cplx.where(active, self.rhs - self.apply_a(self.x), self.r)
+        self.r2 = _allsum(cplx.abs2_sum(self.r), comm)
+        _record(self.hist, self.it, active, self.r2, self.rhs_norm2, rdtype)
+
+    def tail(self) -> None:
+        comm, rdtype = self.comm, self.rdtype
+        z = self.precond(self.r) if self.precond is not None else self.r
+        az = self.apply_a(z)
         # beta_j = <Ap_j, Az> / ||Ap_j||^2, zero where the slot is empty
-        raw = _allsum(cplx.conj_contract_stack(aps, az), comm)
+        raw = _allsum(cplx.conj_contract_stack(self.aps, az), comm)
         betas = torch.where(
-            ap_norms > 0, _div_real(raw, ap_norms, rdtype), torch.zeros_like(raw)
+            self.ap_norms > 0, _div_real(raw, self.ap_norms, rdtype), torch.zeros_like(raw)
         )
-        p = z - cplx.weighted_stack_sum(betas, ps)
-        ap = az - cplx.weighted_stack_sum(betas, aps)
+        self.p = z - cplx.weighted_stack_sum(betas, self.ps)
+        self.ap = az - cplx.weighted_stack_sum(betas, self.aps)
 
         # restart retires the stored directions (GCR.h:277-283): only the
         # norms are cleared; stale rows are never read (betas masked)
-        if count % restart == 0:
-            count = 0
-            ap_norms = torch.zeros_like(ap_norms)
-        slot = count % S  # ring slot (GCR.h:286-287)
-        ps[slot] = p
-        aps[slot] = ap
-        ap2 = _allsum(cplx.abs2_sum(ap), comm)
-        ap_norms[slot] = ap2
+        if self.count % self.restart == 0:
+            self.count = 0
+            self.ap_norms = torch.zeros_like(self.ap_norms)
+        slot = self.count % self.params.storage_size  # ring slot (GCR.h:286-287)
+        self.ps[slot] = self.p
+        self.aps[slot] = self.ap
+        self.ap2 = _allsum(cplx.abs2_sum(self.ap), comm)
+        self.ap_norms[slot] = self.ap2
 
-    return _result(x, r2, rhs_norm2, tol2, it, hist[: n_body + 1] if eager else hist, rdtype)
+    def bodies(self, n: int) -> None:
+        """n bodies, each but the first after the tail of the one before."""
+        for i in range(n):
+            if i:
+                self.tail()
+            self.body()
+
+    def cycle(self) -> None:
+        """One cycle between host checks, with no host read: ``start`` (the
+        first cycle) or the tail of the last body, then ``check_every``
+        bodies and the check's flag ``going``. Bodies past convergence or
+        past ``max_iter`` are masked on the device, so a last cycle run
+        whole gives what one cut at ``max_iter`` gives. The first cycle's
+        tensors become ``state``; a later cycle copies its results into
+        them."""
+        if self.state is None:
+            self.start()
+        else:
+            self.tail()
+        self.bodies(self.check_every)
+        self.going = self.running()
+        if self.state is None:
+            self.state = {k: getattr(self, k) for k in self.STATE}
+            return
+        for k, held in self.state.items():
+            now = getattr(self, k)
+            if now is not held:
+                if cplx.is_cf(held):
+                    held.re.copy_(now.re)
+                    held.im.copy_(now.im)
+                else:
+                    held.copy_(now)
+                setattr(self, k, held)
 
 
 def _gcr_solve_fused(a, rhs, params: GCRParams, precond, x0, check_every: int = 0,

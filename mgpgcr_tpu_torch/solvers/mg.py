@@ -26,25 +26,29 @@ Apply (``MG::solve``, MG.h:406-430): a V-cycle (GCR or Neumann smoother,
 restricted-residual coarse solve, prolongated correction fused with its
 base) or, with the smoother off, the deflation M = I + P C^-1 P^H; the
 coarse GCR is preconditioned by the next level's V-cycle when there is one.
+The coarse GCR runs one restart cycle at a time with one host read per
+cycle (``CoarseSolve``); on the card, without a next level, each cycle is
+a CUDA graph replay.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import threading
 import time
 
 import numpy as np
 import torch
 
 from mgpgcr_tpu_torch import cplx, fields
-from mgpgcr_tpu_torch.kernels import transfer
+from mgpgcr_tpu_torch.kernels import credit_launches, launch_counts, transfer
 from mgpgcr_tpu_torch.mesh import BlockMap, LatticeMesh
 from mgpgcr_tpu_torch.ops.base import LinearOperator
 from mgpgcr_tpu_torch.ops.blockstencil import StencilBlockOperator
 from mgpgcr_tpu_torch.ops.bsr import BlockSparseOperator
 from mgpgcr_tpu_torch.ops.dense import DenseOperator
 from mgpgcr_tpu_torch.ops.wilson_slab import gamma5_slab
-from mgpgcr_tpu_torch.solvers.gcr import gcr_solve
+from mgpgcr_tpu_torch.solvers.gcr import GenericLoop, gcr_solve
 from mgpgcr_tpu_torch.solvers.params import MGParams
 from mgpgcr_tpu_torch.solvers.power import inverse_power_vectors
 
@@ -96,6 +100,107 @@ def _restrict_any(basis: cplx.CF, block_map: BlockMap, x, layout: str) -> cplx.C
     return restrict(basis, block_map, x, "flat")
 
 
+# how the V-cycles' coarse GCR ran its restart cycles, for every hierarchy
+_CYCLES = {"captures": 0, "replays": 0, "eager_cycles": 0}
+
+
+def coarse_cycle_counts() -> dict[str, int]:
+    """CUDA graphs captured for the coarse GCR, restart cycles replayed from
+    them, and restart cycles run eagerly, since the last reset."""
+    return dict(_CYCLES)
+
+
+def reset_coarse_cycle_counts() -> None:
+    for k in _CYCLES:
+        _CYCLES[k] = 0
+
+
+def _alone() -> bool:
+    """True where a CUDA graph capture can be the process's only CUDA work
+    while it lasts: not in a rank thread of ``run_spmd`` nor in a
+    ``torch.distributed`` group, where the sharded MG (``mg_dist.py``) runs
+    its replicated levels."""
+    return threading.current_thread() is threading.main_thread() and not (
+        torch.distributed.is_available() and torch.distributed.is_initialized())
+
+
+class CoarseSolve:
+    """The V-cycle's coarse GCR: the generic loop (``solvers/gcr.py``)
+    driven one restart cycle at a time (``GenericLoop.cycle``), the host
+    reading one device flag per cycle and nothing else; only x is kept.
+
+    On CUDA fields without a coarse preconditioner (the coarsest level of a
+    hierarchy), in restart mode without residual_refresh, in a process that
+    runs no other rank (``_alone``), the first solve runs eagerly, and then
+    the two shapes of a cycle are captured as CUDA graphs in one private
+    memory pool: the set-up and the first cycle, and a later cycle (the
+    last body's tail and ``restart`` more bodies). A restart cycle then
+    always takes the same host-side path, so later solves copy their
+    right-hand side into the graphs' input and replay, and prolongation
+    reads the graphs' x. Elsewhere (CPU tensors, a coarse preconditioner,
+    truncation, the replicated levels of the sharded MG) every cycle runs
+    eagerly. The MG apply passes neither a communicator nor a left
+    preconditioner. The graphs, their pool and their tensors belong to one
+    hierarchy level, and go with it."""
+
+    def __init__(self):
+        self.graphs = None  # ((first, later), input rhs, state, launches of each)
+
+    def solve(self, a, rhs, params, precond=None) -> dict:
+        """The solve's device state (``GenericLoop.STATE``): x, it, hist..."""
+        if self.graphs is not None:
+            return self._replay(rhs, params)
+        g = GenericLoop(a, rhs, params, precond)
+        self._drive(g.cycle, g.cycle, lambda: g.state["going"], g.check_every, params.max_iter,
+                    "eager_cycles")
+        if (rhs.device.type == "cuda" and precond is None and params.restart
+                and not params.residual_refresh and _alone()):
+            self._capture(a, rhs, params)
+        return g.state
+
+    @staticmethod
+    def _drive(first, later, going, n: int, max_iter: int, kind: str) -> None:
+        first()
+        done = n
+        _CYCLES[kind] += 1
+        while done < max_iter and bool(going()):
+            later()
+            done += n
+            _CYCLES[kind] += 1
+
+    def _capture(self, a, rhs, params) -> None:
+        """Capture the first and the later cycle. Capturing runs no kernel,
+        so the launches the wrappers counted meanwhile are taken back, and
+        each replay credits its graph's."""
+        src = cplx.CF(rhs.re.clone(), rhs.im.clone())
+        g = GenericLoop(a, src, params)
+        graphs, launches = [], []
+        for _ in range(2):
+            graph = torch.cuda.CUDAGraph()
+            before = launch_counts()
+            with torch.cuda.graph(graph, pool=graphs[0].pool() if graphs else None):
+                g.cycle()
+            after = launch_counts()
+            launches.append({k: n - before[k] for k, n in after.items()})
+            credit_launches({k: -n for k, n in launches[-1].items()})
+            graphs.append(graph)
+            _CYCLES["captures"] += 1
+        self.graphs = (graphs, src, g.state, launches)
+
+    def _replay(self, rhs, params) -> dict:
+        (first, later), src, state, (n_first, n_later) = self.graphs
+        src.re.copy_(rhs.re)
+        src.im.copy_(rhs.im)
+
+        def run(graph, n):
+            graph.replay()
+            credit_launches(n)
+
+        self._drive(lambda: run(first, n_first), lambda: run(later, n_later),
+                    lambda: state["going"], params.restart, params.max_iter, "replays")
+        return state
+
+
 @dataclasses.dataclass(frozen=True)
 class MGPreconditioner(LinearOperator):
     a: LinearOperator  # fine operator
@@ -109,6 +214,9 @@ class MGPreconditioner(LinearOperator):
     q: cplx.CF | None = None  # (ne, nb, block_len) blocked basis ("flat")
     layout: str = "tpu"  # "tpu": slab CF fields; "flat": canonical flat CF fields
     coarse_precond: "MGPreconditioner | None" = None  # the next level (n_level > 2)
+    # the coarse GCR's restart cycles, and their CUDA graphs once captured
+    coarse_solve: CoarseSolve = dataclasses.field(
+        default_factory=CoarseSolve, init=False, repr=False, compare=False)
 
     @property
     def shape(self) -> tuple[int, int]:
@@ -165,7 +273,11 @@ class MGPreconditioner(LinearOperator):
 
         def coarse_correct(res, base):
             cp = self.coarse_precond.apply if self.coarse_precond is not None else None
-            ec = gcr_solve(self.coarse, self.restrict(res), self.params.coarse_gcr, precond=cp).x
+            rc, cg = self.restrict(res), self.params.coarse_gcr
+            if cg.fused:
+                ec = gcr_solve(self.coarse, rc, cg, precond=cp).x
+            else:
+                ec = self.coarse_solve.solve(self.coarse, rc, cg, cp)["x"]
             return self.prolong(ec, base=base, damping=self.params.correction_damping)
 
         if not self._has_smoother:

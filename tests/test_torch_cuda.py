@@ -378,6 +378,55 @@ def test_mu_major_and_stencil_solves(dev):
     assert stencil_spmv.launches > before and mgp.coarse_precond is not None
 
 
+# the coarse GCR of the config of record (tol 1e-2, 50, restart 10), and a
+# cap of 25 iterations that cuts its third restart cycle
+COARSE_GCR = {"record": GCRParams(tol=1e-2, max_iter=50, restart=10),
+              "cut": GCRParams(tol=1e-12, max_iter=25, restart=10)}
+
+
+@pytest.mark.parametrize("fmt", ["stencil", "bsr", "dense"])
+@pytest.mark.parametrize("cg", sorted(COARSE_GCR))
+def test_coarse_cycles_replay_as_graphs(dev, fmt, cg):
+    """A two-level V-cycle at 8^4 (block 2, ne 6): the first apply runs the
+    coarse GCR's restart cycles eagerly and captures two CUDA graphs; a
+    later apply replays them, as many cycles as the eager run took. The
+    replayed V-cycle equals the eager one bit for bit (the same kernels in
+    the same order on the same inputs), on the right-hand side of the
+    capture and on another one (against a fresh hierarchy's eager apply),
+    and B12's launch count rises by the same amount for both."""
+    import dataclasses
+
+    from mgpgcr_tpu_torch import coarse_cycle_counts, reset_coarse_cycle_counts
+
+    mesh = LatticeMesh((8, 8, 8, 8, 4, 3))
+    d = CudaWilsonDirac.build(wilson.random_links_np(3, mesh), mesh, compress=True,
+                              antiperiodic_t=True, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(4)
+    mgp = setup_mg(gen, DiracOperator(d, 0.12), mesh,
+                   MGParams(block=2, n_nullvecs=3, coarse_format=fmt, smoother_gcr=None,
+                            coarse_gcr=COARSE_GCR[cg]))
+    r, r2 = (cplx.random(gen, d.field_shape, device=dev) for _ in range(2))
+
+    def apply(m, v):
+        before = stencil_spmv.launches
+        y = m.apply(v)
+        torch.cuda.synchronize()
+        return y, stencil_spmv.launches - before
+
+    reset_coarse_cycle_counts()
+    eager, n_eager = apply(mgp, r)
+    first = coarse_cycle_counts()
+    assert first["captures"] == 2 and first["replays"] == 0 and first["eager_cycles"] >= 1
+    replayed, n_replayed = apply(mgp, r)
+    counts = coarse_cycle_counts()
+    assert counts["replays"] == first["eager_cycles"]
+    assert counts["captures"] == 2 and counts["eager_cycles"] == first["eager_cycles"]
+    assert n_replayed == n_eager and (n_eager > 0) == (fmt == "stencil")
+    fresh = dataclasses.replace(mgp)  # the same hierarchy, its coarse solve not yet run
+    for got, want in ((replayed, eager), (apply(mgp, r2)[0], apply(fresh, r2)[0])):
+        assert torch.equal(got.re, want.re) and torch.equal(got.im, want.im)
+
+
 # the ghost-plane kernels on (t, z) grids of ThreadComm ranks sharing the
 # card: a ragged shard (T_l = 1 and odd extents), 8^4 on 2 x 2, t split
 # four ways with z wrapped in the kernel, and one rank (nt = 1: the t
