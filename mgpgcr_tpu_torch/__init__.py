@@ -103,8 +103,10 @@ from mgpgcr_tpu_torch.solvers.mg import (
     coarse_cycle_counts,
     mg_from_numpy,
     reset_coarse_cycle_counts,
+    reset_smoother_counts,
     setup_mg,
     setup_mg_from,
+    smoother_counts,
 )
 from mgpgcr_tpu_torch.solvers.mg_dist import (
     ShardedMGPreconditioner,
@@ -153,6 +155,8 @@ __all__ = [
     "MGPreconditioner",
     "coarse_cycle_counts",
     "reset_coarse_cycle_counts",
+    "smoother_counts",
+    "reset_smoother_counts",
     "setup_mg",
     "setup_mg_from",
     "mg_from_numpy",

@@ -28,7 +28,8 @@ base) or, with the smoother off, the deflation M = I + P C^-1 P^H; the
 coarse GCR is preconditioned by the next level's V-cycle when there is one.
 The coarse GCR runs one restart cycle at a time with one host read per
 cycle (``CoarseSolve``); on the card, without a next level, each cycle is
-a CUDA graph replay.
+a CUDA graph replay. Each smoother sweep runs under the profiler span
+``mg.smooth`` and is counted with its iterations (``smoother_counts``).
 """
 
 from __future__ import annotations
@@ -51,6 +52,7 @@ from mgpgcr_tpu_torch.ops.wilson_slab import gamma5_slab
 from mgpgcr_tpu_torch.solvers.gcr import GenericLoop, gcr_solve
 from mgpgcr_tpu_torch.solvers.params import MGParams
 from mgpgcr_tpu_torch.solvers.power import inverse_power_vectors
+from mgpgcr_tpu_torch.utils.profiling import annotate
 
 _STORAGE = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float64": torch.float64}
 _FORMATS = ("dense", "bsr", "stencil")
@@ -113,6 +115,22 @@ def coarse_cycle_counts() -> dict[str, int]:
 def reset_coarse_cycle_counts() -> None:
     for k in _CYCLES:
         _CYCLES[k] = 0
+
+
+# the V-cycles' smoother solves (pre and post) and their iterations
+_SMOOTH = {"calls": 0, "iterations": 0}
+
+
+def smoother_counts() -> dict[str, int]:
+    """Smoother solves run by the V-cycles (each pre- and post-smoothing
+    sweep is one) and their iterations (GCR iterations, or Neumann terms),
+    since the last reset."""
+    return dict(_SMOOTH)
+
+
+def reset_smoother_counts() -> None:
+    for k in _SMOOTH:
+        _SMOOTH[k] = 0
 
 
 def _alone() -> bool:
@@ -252,10 +270,15 @@ class MGPreconditioner(LinearOperator):
         return self.params.smoother == "neumann" or self.params.smoother_gcr is not None
 
     def _smooth(self, rhs, x, n: int, x_is_zero: bool = False):
+        """n smoother sweeps, each under the profiler span ``mg.smooth`` and
+        counted by ``smoother_counts``."""
         a = self.a_smooth if self.a_smooth is not None else self.a
         if self.params.smoother == "neumann":
             for i in range(n):
-                x = self._neumann_smooth(a, rhs, x, x_is_zero and i == 0)
+                with annotate("mg.smooth"):
+                    x = self._neumann_smooth(a, rhs, x, x_is_zero and i == 0)
+                _SMOOTH["calls"] += 1
+                _SMOOTH["iterations"] += self.params.smoother_terms
             return x
         sp = self.params.smoother_gcr
         if sp is None:
@@ -263,7 +286,12 @@ class MGPreconditioner(LinearOperator):
         for i in range(n):
             # from x = 0 the solver starts at r = rhs; a warm start
             # computes r = rhs - A x in the solver's own first apply
-            x = gcr_solve(a, rhs, sp).x if x_is_zero and i == 0 else gcr_solve(a, rhs, sp, x0=x).x
+            with annotate("mg.smooth"):
+                res = (gcr_solve(a, rhs, sp) if x_is_zero and i == 0
+                       else gcr_solve(a, rhs, sp, x0=x))
+            x = res.x
+            _SMOOTH["calls"] += 1
+            _SMOOTH["iterations"] += res.n_iters
         return x
 
     def apply(self, r):

@@ -2,9 +2,8 @@
 
 Counterpart of ``mgpgcr_tpu/utils/profiling.py``:
 
-- ``annotate("phase")`` labels a host phase (``torch.profiler.
-  record_function``); it shows on the timeline of any enclosing capture
-  and costs next to nothing otherwise;
+- ``annotate("phase")`` labels a host phase; it shows on the host
+  timeline of any enclosing capture and costs next to nothing otherwise;
 - ``trace(logdir)`` captures the host and the card (CPU and CUDA
   activities) over the block and writes a Chrome trace to
   ``logdir/trace.json``;
@@ -64,8 +63,11 @@ def chip_flops(device=None) -> float | None:
 @contextlib.contextmanager
 def annotate(name: str) -> Iterator[None]:
     """Label a host-side phase on the profiler timeline. Safe without an
-    active trace; safe on the CPU."""
-    with torch.profiler.record_function(name):
+    active trace; safe on the CPU. The label is a plain host range: a
+    ``torch.profiler.record_function`` (a user annotation) is mirrored onto
+    the card's timeline as a range over the kernels it launched, which a
+    trace reader would take for device work."""
+    with torch._C._profiler._RecordFunctionFast(name):
         yield
 
 
