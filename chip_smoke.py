@@ -39,6 +39,13 @@ Phases, each printed as one JSON line with its wall seconds:
             K1, K2, B9, B12 (every shape) and B13 also the time with the
             host out of the window (graph_ms: the wrapper calls captured in
             a CUDA graph and replayed), beside the wrapper's event time;
+  coarse_gcr  the coarse GCR kernels (csrc/coarse_gcr.cu) at the config of
+            record's coarse level (nb 4096, ne 20, restart 10), each against
+            its plain version, timed through its wrapper and host-free
+            (graph_ms) over a cycle's lim 10, 1..9, beside its byte bound,
+            its plain version and, for the dots, one matrix-vector product;
+            then a replayed coarse solve (cap 50) under torch.profiler:
+            device operations per coarse iteration, by name;
   solve     the plain path: both solve forms (two runs each, in turns),
             iteration counts, ms per iteration, the independent f64
             residual, launch counts;
@@ -171,6 +178,7 @@ REPLACES = {
 REC_BLOCK, REC_NULLVECS = 4, 10  # the config of record (MGParams() defaults)
 # B12's shapes on the MG paths: (grid of blocks, ne); the config of
 # record's coarse level, and levels 2 and 3 of the three-level cell
+COARSE_M, COARSE_S = 4096 * 20, 10  # the config of record's coarse level and restart
 SPMV_SHAPES = {"record": ((8, 8, 8, 8), 20), "level2": ((4, 4, 4, 4), 12),
                "level3": ((2, 2, 2, 2), 12)}
 BIG_LIM = 20  # beta_dots past one chunk of 8 rows, lim past the cycles form's 16
@@ -369,6 +377,184 @@ def profile_solve(a, b, params, card: str, precond=None, label: str = "profile")
     emit(label, t1, card=card, iters=res.n_iters, wall_ms=wall_ms, device_ms=device_ms,
          idle_share=1 - device_ms / wall_ms, launches=sum(e.count for e in kern),
          top=[[e.key[:60], e.self_device_time_total / 1e3, e.count] for e in kern[:12]])
+
+
+def coarse_operator(dev, shift: float):
+    """A block stencil on the config of record's coarse grid (8^4 blocks of
+    ne 20): shift * I plus 0.25-scaled random couplings, and a right-hand
+    side (seeded)."""
+    import torch
+
+    from mgpgcr_tpu_torch import StencilBlockOperator, cplx
+
+    gen = torch.Generator(device=dev).manual_seed(19)
+    ne = 20
+    blocks = cplx.random(gen, (4096, 9, ne, ne), torch.float32, dev)
+    blocks = cplx.CF(blocks.re * 0.25 / ne**0.5, blocks.im * 0.25 / ne**0.5)
+    blocks.re[:, 0] += shift * torch.eye(ne, device=dev)
+    return (StencilBlockOperator(blocks, (8, 8, 8, 8)),
+            cplx.random(gen, (COARSE_M,), torch.float32, dev))
+
+
+def coarse_trace(dev) -> dict:
+    """The device operations of one coarse GCR solve (tol 1e-2, cap 50,
+    restart 10, capped: 50 iterations) replayed from its CUDA graphs, the
+    third solve of one ``CoarseSolve``, under torch.profiler: their count
+    per coarse iteration and by name."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from mgpgcr_tpu_torch import GCRParams
+    from mgpgcr_tpu_torch.solvers.mg import CoarseSolve
+
+    op, rhs = coarse_operator(dev, 0.6)
+    params = GCRParams(tol=1e-2, max_iter=50, restart=COARSE_S)
+    cs = CoarseSolve()
+    for _ in range(2):
+        cs.solve(op, rhs, params)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        state = cs.solve(op, rhs, params)
+        torch.cuda.synchronize()
+    ops = [e for e in prof.key_averages() if str(e.device_type).endswith("CUDA")]
+    iters = int(state["it"])
+    n = sum(e.count for e in ops)
+    return {"iters": iters, "device_ops": n, "per_iteration": n / max(iters, 1),
+            "by_name": {strip_params(e.key)[:80]: e.count
+                        for e in sorted(ops, key=lambda e: -e.count)}}
+
+
+# the parts of CycleScalars' value block, compared each on its own scale
+SCALAR_PARTS = ("betas", "alpha", "ap_norms", "r2", "rhs_norm2", "active")
+
+
+def coarse_err(got, want) -> float:
+    """The relative error of a coarse GCR output: of an int or bool tensor
+    (``it``, ``going``) 0 or inf, exact; of a float, complex or CF one max
+    |got - want| / max |want|, with NaNs required in the same places (the
+    history) and exact where the reference is all zero."""
+    import torch
+
+    from mgpgcr_tpu_torch import cplx
+
+    if cplx.is_cf(want):
+        got, want = (torch.complex(v.re, v.im) for v in (got, want))
+
+    if not (want.is_floating_point() or want.is_complex()):
+        return 0.0 if torch.equal(got, want) else float("inf")
+    nan = torch.isnan(want)
+    if not torch.equal(torch.isnan(got), nan):
+        return float("inf")
+    g, w = got[~nan], want[~nan]
+    if not w.numel():
+        return 0.0
+    diff, scale = float((g - w).abs().max()), float(w.abs().max())
+    if not scale:
+        return 0.0 if diff == 0 else float("inf")
+    return diff / scale
+
+
+def coarse_gcr_phase(dev, card: str) -> None:
+    """The coarse GCR kernels at nb 4096, ne 20, S 10: each against its
+    plain version, then their times (through the wrapper, host-free, the
+    plain version, and for the dots one matrix-vector product) beside their
+    byte bounds, per call over a later cycle's lim 10, 1..9; then
+    ``coarse_trace``."""
+    import torch
+
+    from mgpgcr_tpu_torch import cplx
+    from mgpgcr_tpu_torch.kernels.coarse_gcr import (
+        CycleScalars, coarse_gcr_dir, coarse_gcr_dir_plain, coarse_gcr_dots,
+        coarse_gcr_dots_plain, coarse_gcr_start, coarse_gcr_start_plain, coarse_gcr_update,
+        coarse_gcr_update_plain,
+    )
+
+    t1 = time.perf_counter()
+    M, S = COARSE_M, COARSE_S
+    field = M * 8  # bytes of one complex f32 vector
+    gen = torch.Generator(device=dev).manual_seed(23)
+    vec = lambda *lead: cplx.random(gen, lead + (M,), torch.float32, dev)  # noqa: E731
+    b, az, r, x, ps, aps = vec(), vec(), vec(), vec(), vec(S), vec(S)
+    sc = CycleScalars(S, 1e-2, 50, torch.float32, dev)
+    sc.vals.copy_(torch.rand(sc.vals.shape, generator=gen, device=dev) + 0.5)
+    sc.it.fill_(7)
+    lims = [S] + list(range(1, S))  # a later cycle: the restart's direction, then 1..9
+
+    def copy(s):
+        out = CycleScalars(S, 1e-2, 50, torch.float32, dev)
+        for a, c in ((out.vals, s.vals), (out.it, s.it), (out.going, s.going),
+                     (out.hist, s.hist)):
+            a.copy_(c)
+        return out
+
+    def scalars(s) -> dict:
+        """The parts of ``s`` that the parity compares, each apart."""
+        return {**{k: getattr(s, k).clone() for k in SCALAR_PARTS},
+                "it": s.it.clone(), "going": s.going.clone(), "hist": s.hist.clone()}
+
+    # parity: the kernel and its plain version from the same inputs, each
+    # output and each part of the scalars on its own scale
+    errs = {}
+    for lim in lims + [0]:
+        slot = lim % S
+        runs = []
+        for dots, dirs, upd, start in ((coarse_gcr_dots, coarse_gcr_dir, coarse_gcr_update,
+                                        coarse_gcr_start),
+                                       (coarse_gcr_dots_plain, coarse_gcr_dir_plain,
+                                        coarse_gcr_update_plain, coarse_gcr_start_plain)):
+            s2, xx, rr, pp, qq = copy(sc), x.clone(), r.clone(), ps.clone(), aps.clone()
+            if lim:
+                dots(qq, az, lim, s2)
+            dirs(rr, az, pp, qq, slot, lim, slot == 0, s2)
+            upd(xx, rr, pp, qq, slot, s2)
+            out = {"x": xx.clone(), "r": rr.clone(), "p": pp[slot].clone(),
+                   "ap": qq[slot].clone(), **{f"step/{k}": v for k, v in scalars(s2).items()}}
+            start(b, xx, rr, s2)
+            runs.append({**out, "start/r": rr,
+                         **{f"start/{k}": v for k, v in scalars(s2).items()}})
+        got, want = runs
+        check(int(want["step/it"]) == 8, f"the update at lim {lim} counted an iteration")
+        for k, w in want.items():
+            err = coarse_err(got[k], w)
+            check(err <= FIELD_TOL, f"coarse GCR kernels at lim {lim}, {k}: {err}")
+            errs[f"lim={lim}/{k}"] = err
+
+    def over_cycle(fn):
+        for lim in lims:
+            fn(lim)
+
+    stack = torch.complex(aps.re, aps.im)
+    azc = torch.complex(az.re, az.im)
+    raw = torch.mv(stack.conj(), azc)
+    check(rel_err(raw, cplx.conj_contract_stack(aps, az))[0] <= FIELD_TOL,
+          "the dots' matrix-vector yardstick")
+    calls = {  # wrapper, plain, calls a cycle, bytes a call, library call
+        "coarse_gcr_start": (lambda: coarse_gcr_start(b, x, r, sc),
+                             lambda: coarse_gcr_start_plain(b, x, r, sc), 1, 3 * field, None),
+        "coarse_gcr_dots": (lambda: over_cycle(lambda lim: coarse_gcr_dots(aps, az, lim, sc)),
+                            lambda: over_cycle(lambda lim: coarse_gcr_dots_plain(aps, az, lim,
+                                                                                 sc)),
+                            S, sum(lim + 1 for lim in lims) * field / S,
+                            lambda: torch.mv(stack.conj(), azc)),
+        "coarse_gcr_dir": (lambda: over_cycle(lambda lim: coarse_gcr_dir(
+                               r, az, ps, aps, lim % S, lim, lim == S, sc)),
+                           lambda: over_cycle(lambda lim: coarse_gcr_dir_plain(
+                               r, az, ps, aps, lim % S, lim, lim == S, sc)),
+                           S, sum(2 * lim + 4 for lim in lims) * field / S, None),
+        "coarse_gcr_update": (lambda: over_cycle(lambda lim: coarse_gcr_update(
+                                  x, r, ps, aps, lim % S, sc)),
+                              lambda: over_cycle(lambda lim: coarse_gcr_update_plain(
+                                  x, r, ps, aps, lim % S, sc)),
+                              S, 6 * field, None),
+    }
+    rows = {}
+    for name, (fn, plain, n, nbytes, lib) in calls.items():
+        rows[name] = {
+            "ms": cuda_ms(fn) / n, "graph_ms": graph_ms(fn, calls=n), "plain_ms":
+            cuda_ms(plain, reps=5, warmup=1) / n, "bound_ms": 1e3 * nbytes / HBM_BYTES_PER_S,
+            "bytes": nbytes, "library_ms": cuda_ms(lib) if lib is not None else None}
+    emit("coarse_gcr", t1, card=card, nb=4096, ne=20, S=S, kernels=rows,
+         worst_rel_err=max(errs.values()), trace=coarse_trace(dev))
 
 
 def mg_kernel_parity(mesh, variants, gen, note, S: int):
@@ -2755,6 +2941,7 @@ def main() -> int:
                   for k, v in table.items()},
          variants=kernel_variants)
     del aps, r, psi, variants, mg_inputs, loop_inputs, new_inputs, basis, basis_all
+    coarse_gcr_phase(dev, card)
 
     # ---- solve: the plain path --------------------------------------------
     t1 = time.perf_counter()

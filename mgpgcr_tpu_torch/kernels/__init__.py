@@ -5,6 +5,12 @@ kernels that ran, whether the wrapper launched them or a CUDA graph
 replayed them (``credit_launches``)."""
 
 from mgpgcr_tpu_torch.kernels import _lib
+from mgpgcr_tpu_torch.kernels.coarse_gcr import (
+    coarse_gcr_dir,
+    coarse_gcr_dots,
+    coarse_gcr_start,
+    coarse_gcr_update,
+)
 from mgpgcr_tpu_torch.kernels.dslash import dslash_apply, dslash_mu
 from mgpgcr_tpu_torch.kernels.dslash_dist import dslash_dist
 from mgpgcr_tpu_torch.kernels.gcr_dslash import gcr_stream_step, gcr_z_step
@@ -23,7 +29,7 @@ from mgpgcr_tpu_torch.kernels.transfer import prolong, restrict
 WRAPPERS = (
     dslash_apply, gcr_stream_step, ap_update, basis_flush, update_r, gcr_z_step, restrict,
     prolong, update_xr, beta_dots, dir_update, stencil_spmv, dslash_mu, dslash_dist,
-    gcr_stream_step_dist,
+    gcr_stream_step_dist, coarse_gcr_start, coarse_gcr_dots, coarse_gcr_dir, coarse_gcr_update,
 )
 
 

@@ -75,6 +75,17 @@ _SIGNATURES = {
     "mg_dslash_dist": [_P] * 7 + [_I] * 6 + [_P, _P],
     # as mg_gcr_stream_step without anti_t, plus the ghost table
     "mg_gcr_stream_step_dist": [_P] * 14 + [_I] * 8 + [_P, _P],
+    # b re/im, x re/im, r re/im, scalars, hist, it, partials, ticket, M, S,
+    # max_iter, stream
+    "mg_coarse_gcr_start": [_P] * 11 + [_L, _I, _I, _P],
+    # aps re/im, az re/im, scalars, partials, ticket, M, S, lim, stream
+    "mg_coarse_gcr_dots": [_P] * 7 + [_L, _I, _I, _P],
+    # r re/im, az re/im, ps re/im, aps re/im, scalars, it, partials, ticket,
+    # M, S, lim, slot, clear, tol2, max_iter, stream
+    "mg_coarse_gcr_dir": [_P] * 12 + [_L] + [_I] * 4 + [_F, _I, _P],
+    # x re/im, r re/im, ps re/im, aps re/im, scalars, hist, it, going,
+    # partials, ticket, M, S, slot, tol2, max_iter, stream
+    "mg_coarse_gcr_update": [_P] * 14 + [_L, _I, _I, _F, _I, _P],
 }
 
 _lock = threading.Lock()

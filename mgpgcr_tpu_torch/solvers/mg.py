@@ -28,7 +28,8 @@ base) or, with the smoother off, the deflation M = I + P C^-1 P^H; the
 coarse GCR is preconditioned by the next level's V-cycle when there is one.
 The coarse GCR runs one restart cycle at a time with one host read per
 cycle (``CoarseSolve``); on the card, without a next level, each cycle is
-a CUDA graph replay. Each smoother sweep runs under the profiler span
+a CUDA graph replay, of the coarse GCR kernels on float32 fields
+(``KernelCycle``). Each smoother sweep runs under the profiler span
 ``mg.smooth`` and is counted with its iterations (``smoother_counts``).
 """
 
@@ -43,6 +44,14 @@ import torch
 
 from mgpgcr_tpu_torch import cplx, fields
 from mgpgcr_tpu_torch.kernels import credit_launches, launch_counts, transfer
+from mgpgcr_tpu_torch.kernels.coarse_gcr import (
+    MAX_ROWS,
+    CycleScalars,
+    coarse_gcr_dir,
+    coarse_gcr_dots,
+    coarse_gcr_start,
+    coarse_gcr_update,
+)
 from mgpgcr_tpu_torch.mesh import BlockMap, LatticeMesh
 from mgpgcr_tpu_torch.ops.base import LinearOperator
 from mgpgcr_tpu_torch.ops.blockstencil import StencilBlockOperator
@@ -50,7 +59,7 @@ from mgpgcr_tpu_torch.ops.bsr import BlockSparseOperator
 from mgpgcr_tpu_torch.ops.dense import DenseOperator
 from mgpgcr_tpu_torch.ops.wilson_slab import gamma5_slab
 from mgpgcr_tpu_torch.solvers.gcr import GenericLoop, gcr_solve
-from mgpgcr_tpu_torch.solvers.params import MGParams
+from mgpgcr_tpu_torch.solvers.params import GCRParams, MGParams
 from mgpgcr_tpu_torch.solvers.power import inverse_power_vectors
 from mgpgcr_tpu_torch.utils.profiling import annotate
 
@@ -103,12 +112,14 @@ def _restrict_any(basis: cplx.CF, block_map: BlockMap, x, layout: str) -> cplx.C
 
 
 # how the V-cycles' coarse GCR ran its restart cycles, for every hierarchy
-_CYCLES = {"captures": 0, "replays": 0, "eager_cycles": 0}
+_CYCLES = {"captures": 0, "replays": 0, "eager_cycles": 0, "kernel_cycles": 0}
 
 
 def coarse_cycle_counts() -> dict[str, int]:
     """CUDA graphs captured for the coarse GCR, restart cycles replayed from
-    them, and restart cycles run eagerly, since the last reset."""
+    them, restart cycles run eagerly, and restart cycles run through the
+    coarse GCR kernels (``KernelCycle``, eagerly or replayed), since the
+    last reset."""
     return dict(_CYCLES)
 
 
@@ -142,80 +153,162 @@ def _alone() -> bool:
         torch.distributed.is_available() and torch.distributed.is_initialized())
 
 
+class KernelCycle:
+    """Restarted GCR on flat CF vectors through the coarse GCR kernels
+    (``kernels/coarse_gcr.py``), one restart cycle a call: the recurrence of
+    the generic loop (``solvers/gcr.py``, reference GCR.h:222-288) with no
+    preconditioner, every scalar of it on the device (``CycleScalars``).
+
+    An iteration is the apply az = A r and three kernels: the betas against
+    the live rows, the new direction into its ring row (with the restart's
+    clearing of the stored norms, alpha and the active flag), and the x and
+    r update (with r2, it, the history and the flag ``going``). A solve
+    opens with ``coarse_gcr_start``, A r and the first direction; a later
+    cycle opens with the restart's direction, orthogonalised against the
+    whole stack and stored in row 0. Count, ring slot and the live prefix
+    do not depend on the data: iteration c of a cycle (c = 1 .. restart -
+    1) takes lim = slot = c. Iterations past convergence or past
+    ``max_iter`` run masked (alpha 0, r2, it and the history held).
+
+    Every tensor is made here, so a cycle's launches read and write only
+    this object's buffers: the form a CUDA graph replays."""
+
+    def __init__(self, a, rhs, params: GCRParams):
+        self.apply_a = a.apply if hasattr(a, "apply") else a
+        self.rhs, self.restart = rhs, params.restart
+        self.check_every = self.restart  # iterations between host checks
+        self.x, self.r = cplx.zeros_like(rhs), cplx.zeros_like(rhs)
+        self.ps, self.aps = cplx.stack_zeros(self.restart, rhs), cplx.stack_zeros(self.restart, rhs)
+        self.sc = CycleScalars(self.restart, params.tol, params.max_iter, rhs.dtype, rhs.device)
+        self.opened = False
+        self.state = {"x": self.x, "it": self.sc.it, "hist": self.sc.hist, "going": self.sc.going}
+
+    def _iteration(self, c: int) -> None:
+        """The direction of count c (0: the solve's first; restart: the
+        restart's, into row 0) and the update of x and r along it."""
+        slot = c % self.restart
+        az = self.apply_a(self.r)
+        if c:
+            coarse_gcr_dots(self.aps, az, c, self.sc)
+        coarse_gcr_dir(self.r, az, self.ps, self.aps, slot, c, slot == 0, self.sc)
+        coarse_gcr_update(self.x, self.r, self.ps, self.aps, slot, self.sc)
+
+    def cycle(self) -> None:
+        """One restart cycle, ``restart`` iterations, with no host read."""
+        if self.opened:
+            self._iteration(self.restart)
+        else:
+            coarse_gcr_start(self.rhs, self.x, self.r, self.sc)
+            self._iteration(0)
+            self.opened = True
+        for c in range(1, self.restart):
+            self._iteration(c)
+
+
+def _graphed(rhs, params: GCRParams, precond) -> bool:
+    """Whether the coarse GCR's cycles are captured as CUDA graphs: CUDA
+    fields, no coarse preconditioner (the coarsest level), restart mode
+    without residual_refresh, and a process that runs no other rank
+    (``_alone``)."""
+    return (rhs.device.type == "cuda" and precond is None and bool(params.restart)
+            and not params.residual_refresh and _alone())
+
+
+def _kernel_cycles(rhs, params: GCRParams, precond) -> bool:
+    """Whether the coarse GCR runs through the coarse GCR kernels
+    (``KernelCycle``): where it is graphed, on float32 fields, with a
+    restart of at most ``MAX_ROWS``."""
+    return (_graphed(rhs, params, precond) and rhs.dtype == torch.float32
+            and params.restart <= MAX_ROWS)
+
+
 class CoarseSolve:
-    """The V-cycle's coarse GCR: the generic loop (``solvers/gcr.py``)
-    driven one restart cycle at a time (``GenericLoop.cycle``), the host
+    """The V-cycle's coarse GCR, run one restart cycle at a time, the host
     reading one device flag per cycle and nothing else; only x is kept.
 
-    On CUDA fields without a coarse preconditioner (the coarsest level of a
-    hierarchy), in restart mode without residual_refresh, in a process that
-    runs no other rank (``_alone``), the first solve runs eagerly, and then
-    the two shapes of a cycle are captured as CUDA graphs in one private
-    memory pool: the set-up and the first cycle, and a later cycle (the
-    last body's tail and ``restart`` more bodies). A restart cycle then
-    always takes the same host-side path, so later solves copy their
+    Where ``_graphed`` (CUDA fields at the coarsest level, restart mode, no
+    other rank), the first solve runs eagerly, and then the two shapes of a
+    cycle are captured as CUDA graphs in one private memory pool: the
+    solve's opening and first cycle, and a later cycle. A restart cycle
+    then always takes the same host-side path, so later solves copy their
     right-hand side into the graphs' input and replay, and prolongation
-    reads the graphs' x. Elsewhere (CPU tensors, a coarse preconditioner,
-    truncation, the replicated levels of the sharded MG) every cycle runs
-    eagerly. The MG apply passes neither a communicator nor a left
-    preconditioner. The graphs, their pool and their tensors belong to one
-    hierarchy level, and go with it."""
+    reads the graphs' x. On float32 fields there the cycles run through the
+    coarse GCR kernels (``KernelCycle``); elsewhere (CPU tensors, a coarse
+    preconditioner, truncation, the replicated levels of the sharded MG,
+    float64 fields, a restart past ``MAX_ROWS``) the generic loop
+    (``GenericLoop.cycle``) runs them, eagerly but where graphed. The MG
+    apply passes neither a communicator nor a left preconditioner. The
+    graphs, their pool and their tensors belong to one hierarchy level, and
+    go with it."""
 
     def __init__(self):
-        self.graphs = None  # ((first, later), input rhs, state, launches of each)
+        self.graphs = None  # ((first, later), the captured loop, launches of each, counters)
 
     def solve(self, a, rhs, params, precond=None) -> dict:
-        """The solve's device state (``GenericLoop.STATE``): x, it, hist..."""
+        """The solve's device state: x, it, hist, going (and, from the
+        generic loop, the rest of ``GenericLoop.STATE``)."""
         if self.graphs is not None:
             return self._replay(rhs, params)
-        g = GenericLoop(a, rhs, params, precond)
-        self._drive(g.cycle, g.cycle, lambda: g.state["going"], g.check_every, params.max_iter,
-                    "eager_cycles")
-        if (rhs.device.type == "cuda" and precond is None and params.restart
-                and not params.residual_refresh and _alone()):
-            self._capture(a, rhs, params)
-        return g.state
+        loop = self._loop(a, rhs, params, precond)
+        self._drive(loop.cycle, loop.cycle, lambda: loop.state["going"], loop.check_every,
+                    params.max_iter, self._counters(loop, "eager_cycles"))
+        if _graphed(rhs, params, precond):
+            self._capture(self._loop(a, cplx.CF(rhs.re.clone(), rhs.im.clone()), params, None))
+        return loop.state
 
     @staticmethod
-    def _drive(first, later, going, n: int, max_iter: int, kind: str) -> None:
+    def _loop(a, rhs, params, precond):
+        if _kernel_cycles(rhs, params, precond):
+            return KernelCycle(a, rhs, params)
+        return GenericLoop(a, rhs, params, precond)
+
+    @staticmethod
+    def _counters(loop, kind: str) -> tuple[str, ...]:
+        return (kind, "kernel_cycles") if isinstance(loop, KernelCycle) else (kind,)
+
+    @staticmethod
+    def _drive(first, later, going, n: int, max_iter: int, counters: tuple[str, ...]) -> None:
         first()
         done = n
-        _CYCLES[kind] += 1
+        for c in counters:
+            _CYCLES[c] += 1
         while done < max_iter and bool(going()):
             later()
             done += n
-            _CYCLES[kind] += 1
+            for c in counters:
+                _CYCLES[c] += 1
 
-    def _capture(self, a, rhs, params) -> None:
-        """Capture the first and the later cycle. Capturing runs no kernel,
-        so the launches the wrappers counted meanwhile are taken back, and
-        each replay credits its graph's."""
-        src = cplx.CF(rhs.re.clone(), rhs.im.clone())
-        g = GenericLoop(a, src, params)
+    def _capture(self, loop) -> None:
+        """Capture the first and the later cycle of ``loop``, a fresh loop on
+        a copy of the right-hand side, which the graphs keep: its tensors
+        are the graphs' input, state and work space. Capturing runs no
+        kernel, so the launches the wrappers counted meanwhile are taken
+        back, and each replay credits its graph's."""
         graphs, launches = [], []
         for _ in range(2):
             graph = torch.cuda.CUDAGraph()
             before = launch_counts()
             with torch.cuda.graph(graph, pool=graphs[0].pool() if graphs else None):
-                g.cycle()
+                loop.cycle()
             after = launch_counts()
             launches.append({k: n - before[k] for k, n in after.items()})
             credit_launches({k: -n for k, n in launches[-1].items()})
             graphs.append(graph)
             _CYCLES["captures"] += 1
-        self.graphs = (graphs, src, g.state, launches)
+        self.graphs = (graphs, loop, launches, self._counters(loop, "replays"))
 
     def _replay(self, rhs, params) -> dict:
-        (first, later), src, state, (n_first, n_later) = self.graphs
-        src.re.copy_(rhs.re)
-        src.im.copy_(rhs.im)
+        (first, later), loop, (n_first, n_later), counters = self.graphs
+        state = loop.state
+        loop.rhs.re.copy_(rhs.re)
+        loop.rhs.im.copy_(rhs.im)
 
         def run(graph, n):
             graph.replay()
             credit_launches(n)
 
         self._drive(lambda: run(first, n_first), lambda: run(later, n_later),
-                    lambda: state["going"], params.restart, params.max_iter, "replays")
+                    lambda: state["going"], params.restart, params.max_iter, counters)
         return state
 
 

@@ -21,6 +21,17 @@ from mgpgcr_tpu_torch import (
     setup_mg,
     with_link_dtype,
 )
+from mgpgcr_tpu_torch.kernels.coarse_gcr import (
+    CycleScalars,
+    coarse_gcr_dir,
+    coarse_gcr_dir_plain,
+    coarse_gcr_dots,
+    coarse_gcr_dots_plain,
+    coarse_gcr_start,
+    coarse_gcr_start_plain,
+    coarse_gcr_update,
+    coarse_gcr_update_plain,
+)
 from mgpgcr_tpu_torch.kernels.dslash import dslash_apply, dslash_mu, dslash_mu_plain, dslash_plain
 from mgpgcr_tpu_torch.kernels.gcr_dslash import (
     gcr_stream_step,
@@ -45,6 +56,7 @@ from mgpgcr_tpu_torch.kernels.gcr_kernels import (
 from mgpgcr_tpu_torch.kernels.spmv import stencil_spmv, stencil_spmv_plain
 from mgpgcr_tpu_torch.kernels.transfer import prolong, prolong_plain, restrict, restrict_plain
 from mgpgcr_tpu_torch.ops import wilson
+from mgpgcr_tpu_torch.ops.blockstencil import StencilBlockOperator
 
 pytestmark = pytest.mark.cuda
 
@@ -59,10 +71,10 @@ def dev():
     return torch.device("cuda")
 
 
-def _close(got, want):
+def _close(got, want, what: str = ""):
     g = cplx.to_numpy(got) if cplx.is_cf(got) else got.detach().cpu().numpy()
     w = cplx.to_numpy(want) if cplx.is_cf(want) else want.detach().cpu().numpy()
-    np.testing.assert_allclose(g, w, rtol=0, atol=TOL * np.abs(w).max())
+    np.testing.assert_allclose(g, w, rtol=0, atol=TOL * np.abs(w).max(), err_msg=what)
 
 
 def _setup(dims, dev, rows, ldt):
@@ -425,6 +437,148 @@ def test_coarse_cycles_replay_as_graphs(dev, fmt, cg):
     fresh = dataclasses.replace(mgp)  # the same hierarchy, its coarse solve not yet run
     for got, want in ((replayed, eager), (apply(mgp, r2)[0], apply(fresh, r2)[0])):
         assert torch.equal(got.re, want.re) and torch.equal(got.im, want.im)
+
+
+# the coarse GCR kernels at the config of record's coarse level: nb 4096
+# blocks of ne 20 (M = 81,920), restart 10, cap 50
+COARSE_M, COARSE_S, COARSE_CAP = 4096 * 20, 10, 50
+
+
+def _scalars_like(sc: CycleScalars) -> CycleScalars:
+    """A copy of ``sc``: its values, it, going and history."""
+    out = CycleScalars(sc.S, sc.tol2**0.5, sc.max_iter, sc.vals.dtype, sc.vals.device)
+    for a, b in ((out.vals, sc.vals), (out.it, sc.it), (out.going, sc.going),
+                 (out.hist, sc.hist)):
+        a.copy_(b)
+    return out
+
+
+def _same_scalars(got: CycleScalars, want: CycleScalars):
+    """Each part of the value block on its own scale (exact where the plain
+    version's part is zero), ``it`` and ``going`` exactly, the history with
+    its NaNs in place."""
+    for part in ("betas", "alpha", "ap_norms", "r2", "rhs_norm2", "active"):
+        _close(getattr(got, part), getattr(want, part), part)
+    assert int(got.it) == int(want.it) and bool(got.going) == bool(want.going)
+    g, w = got.hist.cpu().numpy(), want.hist.cpu().numpy()
+    assert np.array_equal(np.isnan(g), np.isnan(w))
+    np.testing.assert_allclose(g[~np.isnan(g)], w[~np.isnan(w)], rtol=TOL)
+
+
+def test_coarse_gcr_kernels(dev):
+    """coarse_gcr_start, _dots, _dir and _update against their plain
+    versions at nb 4096, ne 20, S 10: dots at every lim 1..10 (one empty
+    slot masked); dir at every lim 0..10 into the ring slot lim % 10 (slot 0
+    at lim 10, inside the live prefix, clearing the stored norms), active
+    and past max_iter; update at every slot, active (r2, it, hist[it]) and
+    masked. Each kernel counts one launch."""
+    gen = torch.Generator(device=dev).manual_seed(17)
+    M, S = COARSE_M, COARSE_S
+    f = lambda *lead: cplx.random(gen, lead + (M,), torch.float32, dev)  # noqa: E731
+    b, az, r, x = f(), f(), f(), f()
+    ps, aps = f(S), f(S)
+    sc = CycleScalars(S, 1e-2, COARSE_CAP, torch.float32, dev)
+    sc.vals.copy_(torch.rand(sc.vals.shape, generator=gen, device=dev) + 0.5)
+    sc.ap_norms[3] = 0.0  # an empty slot: its beta is zero
+    sc.it.fill_(7)
+
+    def both(kernel, plain, args, outs, sc_in):
+        got, want = [o.clone() for o in outs], [o.clone() for o in outs]
+        sg, sw = _scalars_like(sc_in), _scalars_like(sc_in)
+        before = kernel.launches
+        kernel(*args(got), sg)
+        assert kernel.launches == before + 1
+        plain(*args(want), sw)
+        for g, w in zip(got, want):
+            _close(g, w)
+        _same_scalars(sg, sw)
+        return sg
+
+    started = both(coarse_gcr_start, coarse_gcr_start_plain, lambda o: (b, o[0], o[1]), [x, r],
+                   sc)
+    assert int(started.it) == 0 and float(started.hist[0]) == 1.0
+    for lim in range(1, S + 1):
+        got = both(coarse_gcr_dots, coarse_gcr_dots_plain, lambda o: (aps, az, lim), [], sc)
+        assert bool((got.betas[lim:] == 0).all())
+        if lim > 3:
+            assert complex(got.betas[3]) == 0
+    done = _scalars_like(sc)
+    done.it.fill_(COARSE_CAP)  # past max_iter: not active, alpha 0
+    for lim in range(S + 1):
+        slot = lim % S
+        for s_in in (sc, done):
+            got = both(coarse_gcr_dir, coarse_gcr_dir_plain,
+                       lambda o: (r, az, o[0], o[1], slot, lim, slot == 0), [ps, aps], s_in)
+            assert float(got.active) == float(s_in is sc)
+            if slot == 0:
+                assert bool((got.ap_norms[1:] == 0).all())
+    for slot in range(S):
+        for act in (1.0, 0.0):
+            s_in = _scalars_like(sc)
+            s_in.active.fill_(act)
+            got = both(coarse_gcr_update, coarse_gcr_update_plain,
+                       lambda o: (o[0], o[1], ps, aps, slot), [x, r], s_in)
+            assert int(got.it) == 7 + int(act)
+
+
+def _coarse_operator(dev, shift: float = 1.0):
+    """A block stencil on the config of record's coarse grid (8^4 blocks of
+    ne 20): shift * I plus 0.25-scaled random couplings, and a right-hand
+    side."""
+    gen = torch.Generator(device=dev).manual_seed(19)
+    ne, dims = 20, (8, 8, 8, 8)
+    blocks = cplx.random(gen, (4096, 9, ne, ne), torch.float32, dev)
+    blocks = cplx.CF(blocks.re * 0.25 / ne**0.5, blocks.im * 0.25 / ne**0.5)
+    blocks.re[:, 0] += shift * torch.eye(ne, device=dev)
+    return StencilBlockOperator(blocks, dims), cplx.random(gen, (COARSE_M,), torch.float32, dev)
+
+
+# (coarse GCR, shift): converged inside the first cycle, at the cap of 50
+# (five whole cycles), at the cap of 25 (inside the third cycle)
+COARSE_RUNS = {"converges": ("record", 1.0), "cap50": ("record", 0.6), "cap25": ("cut", 1.0)}
+
+
+@pytest.mark.parametrize("run", sorted(COARSE_RUNS))
+def test_coarse_kernel_cycles_replay(dev, run):
+    """The coarse GCR through its kernels at nb 4096, ne 20: the first
+    solve runs its cycles eagerly, a later one replays the captured graphs;
+    both give the generic loop's iteration count and its x within float32
+    rounding (the history within 1e-5); kernel_cycles counts the eager and
+    the replayed cycles, and B12's launches credited to a replayed solve
+    equal the eager solve's. One iteration is B12 and three kernels."""
+    from mgpgcr_tpu_torch import coarse_cycle_counts, reset_coarse_cycle_counts
+    from mgpgcr_tpu_torch.solvers.gcr import _gcr_solve_generic
+    from mgpgcr_tpu_torch.solvers.mg import CoarseSolve
+
+    cg, shift = COARSE_RUNS[run]
+    params = COARSE_GCR[cg]
+    op, rhs = _coarse_operator(dev, shift)
+    want = _gcr_solve_generic(op, rhs, params, None, None)
+    cs = CoarseSolve()
+    reset_coarse_cycle_counts()
+    launched = []
+    for _ in range(2):
+        before = {w: w.launches for w in (stencil_spmv, coarse_gcr_dots, coarse_gcr_dir,
+                                          coarse_gcr_update, coarse_gcr_start)}
+        state = cs.solve(op, rhs, params)
+        torch.cuda.synchronize()
+        launched.append({w.__name__: w.launches - n for w, n in before.items()})
+        assert int(state["it"]) == want.n_iters
+        hist, hist_want = state["hist"].cpu().numpy(), want.res_history.cpu().numpy()
+        assert np.array_equal(np.isnan(hist), np.isnan(hist_want))
+        np.testing.assert_allclose(hist[~np.isnan(hist)], hist_want[~np.isnan(hist_want)],
+                                   rtol=1e-5)
+        _close(state["x"], want.x)
+    counts = coarse_cycle_counts()
+    cycles = -(-want.n_iters // params.restart)
+    assert counts == {"captures": 2, "eager_cycles": cycles, "replays": cycles,
+                      "kernel_cycles": 2 * cycles}
+    eager, replayed = launched
+    assert eager == replayed
+    iters = cycles * params.restart  # the last cycle runs whole, masked
+    assert eager["stencil_spmv"] == iters and eager["coarse_gcr_start"] == 1
+    assert eager["coarse_gcr_dir"] == iters and eager["coarse_gcr_update"] == iters
+    assert eager["coarse_gcr_dots"] == iters - 1
 
 
 # the ghost-plane kernels on (t, z) grids of ThreadComm ranks sharing the

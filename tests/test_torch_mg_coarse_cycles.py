@@ -11,9 +11,19 @@ tensors, with a three-level hierarchy and under left preconditioning, the
 coarse solve runs eagerly and captures no CUDA graph
 (``coarse_cycle_counts``); a rank thread (the sharded MG's replicated
 levels) is never a place to capture one. The replayed graphs are held to
-the eager cycles on the card in test_torch_cuda.py."""
+the eager cycles on the card in test_torch_cuda.py.
+
+The coarse GCR kernels' cycle (``KernelCycle``), run through the plain
+versions of the kernels on CPU tensors, against the generic loop on a
+small block-stencil operator at restart 10: the same iteration count, the
+history within 1e-5 relative and x within 1e-5, converging in the first
+cycle or a later one, at max_iter 25 (cut inside the third cycle) and 50,
+and from a zero right-hand side. ``CoarseSolve`` keeps the generic loop on
+CPU tensors, in a rank thread, with a coarse preconditioner, on float64
+fields and past a restart of 64 (``_kernel_cycles``)."""
 
 import threading
+import types
 
 import numpy as np
 import pytest
@@ -31,10 +41,13 @@ from mgpgcr_tpu_torch import (
     reset_coarse_cycle_counts,
 )
 from mgpgcr_tpu_torch.ops import wilson
+from mgpgcr_tpu_torch.ops.blockstencil import StencilBlockOperator
 from mgpgcr_tpu_torch.solvers.gcr import _gcr_solve_generic
 from mgpgcr_tpu_torch.solvers.mg import (
     CoarseSolve,
+    KernelCycle,
     _alone,
+    _kernel_cycles,
     build_coarse_operator,
     setup_mg_from,
 )
@@ -125,9 +138,10 @@ def test_cpu_coarse_solve_runs_eagerly(hier, run):
     go()
     counts = coarse_cycle_counts()
     assert counts["eager_cycles"] > 0
-    assert counts["captures"] == 0 and counts["replays"] == 0
+    assert counts["captures"] == 0 and counts["replays"] == 0 and counts["kernel_cycles"] == 0
     reset_coarse_cycle_counts()
-    assert coarse_cycle_counts() == {"captures": 0, "replays": 0, "eager_cycles": 0}
+    assert coarse_cycle_counts() == {"captures": 0, "replays": 0, "eager_cycles": 0,
+                                     "kernel_cycles": 0}
 
 
 def test_no_capture_in_a_rank_thread():
@@ -139,3 +153,96 @@ def test_no_capture_in_a_rank_thread():
     t.join(timeout=30)
     assert not t.is_alive() and seen == [False]
     assert _alone()
+
+
+# the kernels' cycle: a 2x2x2x4 block stencil of 6x6 blocks, I + 0.25-scaled
+# random couplings (well conditioned) or 0.6 I + the same (slow, so the
+# caps bind before convergence)
+KERNEL_CASES = {
+    "first_cycle": (1.0, GCRParams(tol=1e-2, max_iter=25, restart=10), torch.float64),
+    "later_cycle": (1.0, GCRParams(tol=1e-8, max_iter=50, restart=10), torch.float64),
+    "cap25": (0.6, GCRParams(tol=1e-8, max_iter=25, restart=10), torch.float64),
+    "cap50": (0.6, GCRParams(tol=1e-8, max_iter=50, restart=10), torch.float64),
+    "later_cycle_f32": (1.0, GCRParams(tol=1e-6, max_iter=50, restart=10), torch.float32),
+    "cap25_f32": (0.6, GCRParams(tol=1e-8, max_iter=25, restart=10), torch.float32),
+    "zero_rhs": (1.0, GCRParams(tol=1e-2, max_iter=50, restart=10), torch.float64),
+}
+
+
+def _stencil(shift: float, dtype):
+    dims, ne = (2, 2, 2, 4), 6
+    gen = torch.Generator().manual_seed(91)
+    nb = int(np.prod(dims))
+    b = cplx.random(gen, (nb, 2 * len(dims) + 1, ne, ne), dtype, "cpu")
+    b = cplx.CF(b.re * 0.25 / ne**0.5, b.im * 0.25 / ne**0.5)
+    b.re[:, 0] += shift * torch.eye(ne, dtype=dtype)
+    return StencilBlockOperator(b, dims), cplx.random(gen, (nb * ne,), dtype, "cpu")
+
+
+@pytest.mark.parametrize("case", sorted(KERNEL_CASES))
+def test_kernel_cycles_match_generic_loop(case):
+    shift, params, dtype = KERNEL_CASES[case]
+    op, rhs = _stencil(shift, dtype)
+    if case == "zero_rhs":
+        rhs = cplx.zeros_like(rhs)
+    want = _gcr_solve_generic(op, rhs, params, None, None)
+    loop = KernelCycle(op, rhs, params)
+    reset_coarse_cycle_counts()
+    CoarseSolve._drive(loop.cycle, loop.cycle, lambda: loop.state["going"], params.restart,
+                       params.max_iter, ("eager_cycles",))
+    state, n = loop.state, want.n_iters
+    cycles = coarse_cycle_counts()["eager_cycles"]
+    assert int(state["it"]) == n and not bool(state["going"])
+    hist, hist_want = state["hist"].numpy(), want.res_history.numpy()
+    assert np.array_equal(np.isnan(hist), np.isnan(hist_want))
+    assert np.isnan(hist[n + 1:]).all()  # bodies past the stop are masked
+    np.testing.assert_allclose(hist[: n + 1], hist_want[: n + 1], rtol=1e-5, atol=0)
+    x, x_want = cplx.to_numpy(state["x"]), cplx.to_numpy(want.x)
+    np.testing.assert_allclose(x, x_want, rtol=0, atol=1e-5 * max(np.abs(x_want).max(), 1e-30))
+    if case == "zero_rhs":
+        assert n == 0 and cycles == 1 and not np.abs(x).any()
+        return
+    # every cycle runs whole: the last one past the stop, masked
+    assert cycles == -(-n // params.restart) and cycles * params.restart >= n
+    if case.startswith("cap"):
+        assert n == params.max_iter and not want.converged
+    else:
+        assert want.converged and (n <= params.restart) == (case == "first_cycle")
+    if n > params.restart:
+        assert cycles >= 2  # a restart inside the solve
+
+
+def _cuda_like(dtype=torch.float32):
+    """Stands in for a CUDA field where only the device and dtype are read."""
+    return types.SimpleNamespace(device=torch.device("cuda"), dtype=dtype)
+
+
+def test_kernel_cycles_only_where_graphed():
+    """The coarse GCR kernels run on float32 CUDA fields at the coarsest
+    level in restart mode, in the main thread; on CPU tensors, with a
+    coarse preconditioner, in truncation or residual-refresh mode, on
+    float64 fields, past a restart of 64 or in a rank thread, the generic
+    loop runs."""
+    params = GCRParams(tol=1e-2, max_iter=50, restart=10)
+    assert _kernel_cycles(_cuda_like(), params, None)
+    assert not _kernel_cycles(cplx.zeros_like(_stencil(1.0, torch.float32)[1]), params, None)
+    assert not _kernel_cycles(_cuda_like(), params, lambda v: v)
+    assert not _kernel_cycles(_cuda_like(), GCRParams(tol=1e-2, max_iter=50, truncation=10),
+                              None)
+    assert not _kernel_cycles(_cuda_like(), GCRParams(tol=1e-2, max_iter=50, restart=10,
+                                                      residual_refresh=5), None)
+    assert not _kernel_cycles(_cuda_like(torch.float64), params, None)
+    assert not _kernel_cycles(_cuda_like(), GCRParams(tol=1e-2, max_iter=100, restart=65), None)
+    seen = []
+    t = threading.Thread(target=lambda: seen.append(_kernel_cycles(_cuda_like(), params, None)))
+    t.start()
+    t.join(timeout=30)
+    assert not t.is_alive() and seen == [False]
+    # and CoarseSolve on CPU tensors runs the generic loop's cycles
+    op, rhs = _stencil(1.0, torch.float32)
+    reset_coarse_cycle_counts()
+    state = CoarseSolve().solve(op, rhs, params)
+    counts = coarse_cycle_counts()
+    assert "ap_norms" in state  # GenericLoop.STATE
+    assert counts["eager_cycles"] >= 1 and counts["kernel_cycles"] == 0
+    assert counts["captures"] == 0
